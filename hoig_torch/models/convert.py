@@ -1,8 +1,11 @@
-"""JAX/flax Generator parameters -> the port's `state_dict`.
+"""JAX/flax parameters -> the port's `state_dict`s, and back.
 
-The port's modules carry the reference's torch names, so the mapping is the
-one hoig_tpu/models/torch_port.py applies in the other direction (a copy:
-the port imports nothing of hoig_tpu). Layout transforms, flax -> torch:
+The port's modules carry the reference's torch names, so the mappings are
+the ones hoig_tpu/models/torch_port.py applies in the other direction (a
+copy: the port imports nothing of hoig_tpu). `flax_tree_from_torch` lays
+port tensors (a state dict, or gradients by parameter name) out on the flax
+tree's paths, so that tests compare leaf by leaf. Layout transforms,
+flax -> torch:
 
   * Conv HWIO -> OIHW: transpose(3, 2, 0, 1);
   * ConvTranspose HWIO (flax correlates the dilated input with an unflipped
@@ -34,6 +37,16 @@ def _to_torch(kind: str, a: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
     if kind == _CONVT:
         return np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
+    return a
+
+
+def _from_torch(kind: str, a: np.ndarray) -> np.ndarray:
+    """The inverse of `_to_torch`."""
+    a = np.asarray(a, dtype=np.float32)
+    if kind == _CONV:
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if kind == _CONVT:
+        return np.ascontiguousarray(a.transpose(2, 3, 0, 1)[::-1, ::-1])
     return a
 
 
@@ -141,14 +154,45 @@ def generator_mapping(gen_name: str, repeat_num: int, n_down: int = 3):
     return out
 
 
-def generator_state_dict_from_flax(params_np: dict, tcfg) -> dict:
-    """flax Generator tree (numpy leaves, with or without the 'params' level)
-    -> {torch key: tensor} for the port's Generator built from `tcfg`.
+def discriminator_mapping(n_layers: int = 4):
+    """PatchDiscriminator with norm_type='instance' (no norm parameters):
+    the convs sit at Sequential indices 0, then 2 + 3(n - 1) for the stride-2
+    blocks, the stride-1 block, then the 1-channel head."""
+    idxs = [0] + [2 + 3 * (n - 1) for n in range(1, n_layers)]
+    idxs.append(idxs[-1] + 3)
+    idxs.append(idxs[-1] + 3)
+    out = []
+    for j, ti in enumerate(idxs):
+        out.append(((f"Conv_{j}", "kernel"), f"model.{ti}.weight", _CONV))
+        out.append(((f"Conv_{j}", "bias"), f"model.{ti}.bias", _DIRECT))
+    return out
 
-    Raises if a mapped flax leaf is missing or if the tree holds a leaf the
-    mapping does not cover."""
+
+# torchvision layer index of each of the 13 VGG19 convs on the loss's path
+_VGG_TORCH_IDX = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28)
+
+
+def vgg_mapping():
+    out = []
+    for ci, ti in enumerate(_VGG_TORCH_IDX):
+        out.append(((f"conv_{ci}", "kernel"), f"features.{ti}.weight", _CONV))
+        out.append(((f"conv_{ci}", "bias"), f"features.{ti}.bias", _DIRECT))
+    return out
+
+
+def _leaf_paths(tree: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def _state_dict_from_flax(params_np: dict, mapping) -> dict:
+    """flax tree (numpy leaves, with or without the 'params' level) ->
+    {torch key: tensor}. Raises if a mapped flax leaf is missing or if the
+    tree holds a leaf the mapping does not cover."""
     tree = params_np.get("params", params_np)
-    mapping = generator_mapping(tcfg.gen_name, tcfg.repeat_num)
     state, used = {}, set()
     for path, key, kind in mapping:
         node = tree
@@ -158,15 +202,41 @@ def generator_state_dict_from_flax(params_np: dict, tcfg) -> dict:
             node = node[p]
         state[key] = torch.tensor(_to_torch(kind, node))
         used.add(path)
-
-    def leaves(t, prefix=()):
-        for k, v in t.items():
-            if isinstance(v, dict):
-                yield from leaves(v, prefix + (k,))
-            else:
-                yield prefix + (k,)
-
-    extra = [p for p in leaves(tree) if p not in used]
+    extra = [p for p in _leaf_paths(tree) if p not in used]
     if extra:
         raise ValueError(f"{len(extra)} flax leaves not covered, e.g. {extra[:3]}")
     return state
+
+
+def generator_state_dict_from_flax(params_np: dict, tcfg) -> dict:
+    """flax Generator tree -> state dict of the port's Generator built from `tcfg`."""
+    return _state_dict_from_flax(params_np, generator_mapping(tcfg.gen_name, tcfg.repeat_num))
+
+
+def discriminator_state_dict_from_flax(params_np: dict, n_layers: int = 4) -> dict:
+    """flax PatchDiscriminator tree -> state dict of the port's PatchDiscriminator."""
+    return _state_dict_from_flax(params_np, discriminator_mapping(n_layers))
+
+
+def vgg_state_dict_from_flax(params_np: dict) -> dict:
+    """flax Vgg19Features tree -> state dict of the port's Vgg19Features."""
+    return _state_dict_from_flax(params_np, vgg_mapping())
+
+
+def flax_tree_from_torch(named: dict, mapping) -> dict:
+    """{torch key: tensor} (a state dict, or gradients by parameter name) ->
+    nested dict of numpy arrays on the flax tree's paths and layouts.
+    Raises if `named` lacks a mapped key or holds one the mapping does not cover."""
+    tree, used = {}, set()
+    for path, key, kind in mapping:
+        if key not in named:
+            raise KeyError(f"no '{key}' among the given tensors (config mismatch?)")
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _from_torch(kind, named[key].detach().cpu().numpy())
+        used.add(key)
+    extra = sorted(set(named) - used)
+    if extra:
+        raise ValueError(f"{len(extra)} tensors not covered, e.g. {extra[:3]}")
+    return tree

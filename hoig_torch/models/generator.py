@@ -1,4 +1,4 @@
-"""HOGAN generator family (port of hoig_tpu/models/generator.py), inference.
+"""HOGAN generator family (port of hoig_tpu/models/generator.py).
 
   * ResNetGenerator: background branch (tanh RGB).
   * ResUnetGenerator: 3-down U-net with residual bottleneck, skip convs,
@@ -14,6 +14,13 @@ delta in pixel units, the identity grid subtracted from T is 'ij'-indexed,
 and the plain warp uses align_corners=False while T is resized with
 align_corners=True. Public inputs and outputs are NHWC, as in the JAX
 package.
+
+Activation rematerialization (the JAX package's `remat`, `remat_bottleneck`
+and `remat_attn` switches): with `remat` the conv blocks of the encoders and
+decoders recompute their forward in the backward pass
+(`torch.utils.checkpoint`, non-reentrant); the bottleneck's residual blocks
+do so only with `remat_bottleneck` as well, the attention layers only with
+`remat_attn`. Values and state-dict keys do not depend on the switches.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from hoig_torch.models.layers import (
     Conv2d,
@@ -34,6 +42,13 @@ from hoig_torch.models.layers import (
 )
 from hoig_torch.ops.grid_sample import _resize_axis_linear_ac, grid_sample_nhwc
 from hoig_torch.ops.local_combine import local_combine
+
+
+def _run(module: nn.Module, remat: bool, *args):
+    """module(*args), rematerialized in the backward pass when asked."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+    return module(*args)
 
 
 def _to_net(x_nhwc: torch.Tensor) -> torch.Tensor:
@@ -227,9 +242,12 @@ class ResNetGenerator(nn.Module):
     """Background branch: encoder, residual bottleneck, decoder, tanh RGB."""
 
     def __init__(self, in_dim: int, conv_dim: int = 64, repeat_num: int = 6, k_size: int = 3,
-                 n_down: int = 3, compute_dtype: torch.dtype = torch.float32):
+                 n_down: int = 3, compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = True, remat_bottleneck: bool = True):
         super().__init__()
         cd = compute_dtype
+        self.n_down, self.repeat_num = n_down, repeat_num
+        self.remat, self.remat_mid = remat, remat and remat_bottleneck
         layers = list(conv_in_relu(in_dim, conv_dim, 7, 1, 3, cd))
         dim = conv_dim
         for _ in range(n_down):
@@ -243,7 +261,17 @@ class ResNetGenerator(nn.Module):
         self.model = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+        m, i = self.model, 0
+        for _ in range(1 + self.n_down):  # conv-IN-ReLU triples
+            x = _run(m[i:i + 3], self.remat, x)
+            i += 3
+        for _ in range(self.repeat_num):
+            x = _run(m[i], self.remat_mid, x)
+            i += 1
+        for _ in range(self.n_down):  # upconv-IN-ReLU triples
+            x = _run(m[i:i + 3], self.remat, x)
+            i += 3
+        return m[i + 1](m[i](x))
 
 
 class ResUnetGenerator(nn.Module):
@@ -252,9 +280,11 @@ class ResUnetGenerator(nn.Module):
 
     def __init__(self, in_dim: int, cond_dim: int, conv_dim: int = 64, repeat_num: int = 6,
                  k_size: int = 3, n_down: int = 3, spade_layers: Sequence[int] = (0, 0, 0, 0),
-                 on_obj: bool = False, compute_dtype: torch.dtype = torch.float32):
+                 on_obj: bool = False, compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = True, remat_bottleneck: bool = True):
         super().__init__()
         cd = self.compute_dtype = compute_dtype
+        self.remat, self.remat_mid = remat, remat and remat_bottleneck
         self.n_down, self.repeat_num = n_down, repeat_num
         self.spade_layers, self.on_obj = tuple(spade_layers), on_obj
         dim = conv_dim
@@ -294,11 +324,13 @@ class ResUnetGenerator(nn.Module):
 
     def encode_layer(self, i: int, x: torch.Tensor, seg):
         if i > 0 and self.spade_layers[0]:
-            return self.encoders[i](x, seg)
-        return self.encoders[i](x)
+            return _run(self.encoders[i], self.remat, x, seg)
+        return _run(self.encoders[i], self.remat, x)
 
     def resnet_layer(self, i: int, x: torch.Tensor, seg):
-        return self.resnets[i](x, seg) if self._res_spade(i) else self.resnets[i](x)
+        if self._res_spade(i):
+            return _run(self.resnets[i], self.remat_mid, x, seg)
+        return _run(self.resnets[i], self.remat_mid, x)
 
     def encode(self, x, seg=None):
         outs = [self.encode_layer(0, x, seg)]
@@ -313,8 +345,12 @@ class ResUnetGenerator(nn.Module):
 
     def decode(self, x, encoder_outs, seg=None):
         for i in range(self.n_down):
-            x = self.decoders[i](x, seg) if self.spade_layers[3] else self.decoders[i](x)
-            x = self.skippers[i](torch.cat([encoder_outs[self.n_down - 1 - i], x], dim=1))
+            if self.spade_layers[3]:
+                x = _run(self.decoders[i], self.remat, x, seg)
+            else:
+                x = _run(self.decoders[i], self.remat, x)
+            x = _run(self.skippers[i], self.remat,
+                     torch.cat([encoder_outs[self.n_down - 1 - i], x], dim=1))
         return x
 
     def regress(self, x, y=None):
@@ -335,26 +371,29 @@ class ResUnetGenerator(nn.Module):
 
 
 class Generator(nn.Module):
-    """Full HOGAN generator, NHWC in and out, inference only."""
+    """Full HOGAN generator, NHWC in and out."""
 
     def __init__(self, bg_dim: int = 8, img_dim: int = 3, obj_dim: int = 3,
                  img_cond_dim: int = 0, obj_cond_dim: int = 0, conv_dim: int = 64,
                  repeat_num: int = 6, spade_layers: Sequence[int] = (0, 0, 0, 0),
                  attn_layers: Sequence[int] = (), n_down: int = 3,
-                 corner_engine: str = "gather", compute_dtype: torch.dtype = torch.float32):
+                 corner_engine: str = "gather", compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = True, remat_bottleneck: bool = True, remat_attn: bool = True):
         super().__init__()
         cd = compute_dtype
         self.n_down, self.repeat_num = n_down, repeat_num
+        self.remat_attn = remat and remat_attn
+        rm = dict(remat=remat, remat_bottleneck=remat_bottleneck)
         self.spade_layers = tuple(spade_layers)
         # lockstep layers 1..n_down+repeat_num; named layers past them never run
         self.attn_layers = tuple(l for l in attn_layers if l <= n_down + repeat_num)
-        self.bg_model = ResNetGenerator(bg_dim, conv_dim, repeat_num, 3, n_down, cd)
+        self.bg_model = ResNetGenerator(bg_dim, conv_dim, repeat_num, 3, n_down, cd, **rm)
         self.obj_model = ResUnetGenerator(obj_dim, obj_cond_dim, conv_dim, repeat_num, 3, n_down,
-                                          spade_layers, on_obj=True, compute_dtype=cd)
+                                          spade_layers, on_obj=True, compute_dtype=cd, **rm)
         self.src_model = ResUnetGenerator(img_dim, img_cond_dim, conv_dim, repeat_num, 3, n_down,
-                                          spade_layers, compute_dtype=cd)
+                                          spade_layers, compute_dtype=cd, **rm)
         self.tsf_model = ResUnetGenerator(img_dim, img_cond_dim, conv_dim, repeat_num, 3, n_down,
-                                          spade_layers, compute_dtype=cd)
+                                          spade_layers, compute_dtype=cd, **rm)
         for l in self.attn_layers:
             ch = conv_dim * 2 ** min(l, n_down)
             self.add_module(f"attn_{l}", ExtractorAttn(ch, 5, corner_engine, cd))
@@ -364,7 +403,8 @@ class Generator(nn.Module):
         t_scale = _resize_flow(t, x.shape[2])
         if layer in self.attn_layers:
             idt = _identity_grid_ij(x.shape[2], t_scale.dtype, t_scale.device)
-            out = getattr(self, f"attn_{layer}")(_nhwc(x), _nhwc(y), t_scale - idt)
+            out = _run(getattr(self, f"attn_{layer}"), self.remat_attn,
+                       _nhwc(x), _nhwc(y), t_scale - idt)
         else:
             out = grid_sample_nhwc(_nhwc(x), t_scale, align_corners=False)
         return out.permute(0, 3, 1, 2)

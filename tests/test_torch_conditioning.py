@@ -17,6 +17,10 @@ from hoig_torch.data import synthetic as tsyn
 from hoig_torch.geometry import conditioning as tcond
 from hoig_torch.geometry.mano import MANOModel, mano_forward, pca_to_axisang
 
+# parallel test workers each run torch's CPU kernels; one intra-op thread per
+# worker keeps them from contending for the same cores
+torch.set_num_threads(1)
+
 S = 64
 _TABLE_KEYS = ("faces", "face_valid", "num_faces", "map_fn", "sem", "fim_uv", "wim_uv",
                "faces_uv_coord", "obj_tex")

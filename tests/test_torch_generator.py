@@ -19,6 +19,10 @@ from hoig_torch.models import NetworksFactory, convert, layers
 from hoig_torch.models.generator import ExtractorAttn
 from hoig_torch.train.trainer import TrainConfig
 
+# parallel test workers each run torch's CPU kernels; one intra-op thread per
+# worker keeps them from contending for the same cores
+torch.set_num_threads(1)
+
 T = torch.as_tensor
 _DIMS = dict(bg_dim=8, img_dim=3, obj_dim=3, img_cond_dim=3, obj_cond_dim=12)
 

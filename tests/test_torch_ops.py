@@ -22,11 +22,19 @@ from hoig_tpu.ops.morph import morph as jax_morph
 from hoig_tpu.ops.rasterizer import rasterize_fim_wim as jax_rasterize_fim_wim
 from hoig_tpu.ops.table_gather import gather_rows_mxu
 from hoig_torch.ops import grid_sample as tgs
-from hoig_torch.ops.local_combine import local_combine, local_combine_reference
+from hoig_torch.ops.local_combine import (
+    local_combine,
+    local_combine_backward_reference,
+    local_combine_reference,
+)
 from hoig_torch.ops.morph import morph
 from hoig_torch.ops.rasterizer import rasterize_fim_wim
 from hoig_torch.ops.rasterizer_cuda import rasterize_fim_wim_auto
 from hoig_torch.ops.table_gather import gather_rows
+
+# parallel test workers each run torch's CPU kernels; one intra-op thread per
+# worker keeps them from contending for the same cores
+torch.set_num_threads(1)
 
 T = torch.as_tensor
 
@@ -43,6 +51,97 @@ def test_local_combine_reference_matches_jax(radius, d_extra):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
     # the CPU dispatch of the kernel wrapper is the plain version
     np.testing.assert_array_equal(local_combine(T(src), T(v), radius).numpy(), out.numpy())
+
+
+def _combine_case(radius, d_extra, dtype, seed=0):
+    rng = np.random.RandomState(seed + radius + d_extra)
+    b, h, w, c = 2, 6, 8, 8
+    k2 = (2 * radius + 1) ** 2
+    src = rng.randn(b, h + 2 * radius, w + 2 * radius, c).astype(np.float32)
+    v = rng.randn(b, h, w, k2 + d_extra).astype(np.float32)
+    g = rng.randn(b, h, w, c).astype(np.float32)
+    if dtype == "bfloat16":  # values both packages hold exactly
+        src, v, g = (np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                     for a in (src, v, g))
+    return src, v, g, k2
+
+
+@pytest.mark.parametrize("radius,d_extra,dtype", [
+    (2, 7, "float32"), (3, 128 - 49, "float32"), (5, 0, "float32"), (5, 7, "bfloat16"),
+])
+def test_local_combine_gradients_match_jax(radius, d_extra, dtype):
+    """The LocalCombine Function (CPU: the plain backward loops) against
+    jax.grad of the Pallas custom VJP in interpret mode, on the same values.
+    f32: atol/rtol 1e-5. bf16: the port's bf16 gradients against JAX's f32
+    gradients of the same bf16-exact inputs, 1e-2 (one bf16 rounding of an
+    f32 sum; the TPU kernel's own bf16 run sums dsrc in bf16 and is several
+    bf16 ulps off that value at R = 5)."""
+    src, v, g, k2 = _combine_case(radius, d_extra, dtype)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jsrc, jv, jg = (jnp.asarray(a) for a in (src, v, g))
+    ref_s, ref_v = jax.grad(
+        lambda s_, v_: jnp.sum(jax_local_combine(s_, v_, radius) * jg), argnums=(0, 1))(jsrc, jv)
+    ts, tv = T(src.copy()).to(tdt).requires_grad_(), T(v.copy()).to(tdt).requires_grad_()
+    out = local_combine(ts, tv, radius)
+    assert out.grad_fn is not None and out.dtype == tdt
+    out.backward(T(g.copy()).to(tdt))
+    assert ts.grad.dtype == tv.grad.dtype == tdt
+    for name, got, ref in (("dsrc", ts.grad, ref_s), ("dv", tv.grad, ref_v)):
+        ref = np.asarray(ref)
+        got = got.float().numpy()
+        assert got.shape == ref.shape, name
+        if dtype == "float32":
+            np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_allclose(got, ref, atol=1e-2 * float(np.abs(ref).max()), rtol=1e-2,
+                                       err_msg=name)
+    if d_extra:  # ignored columns get zero gradient
+        assert not tv.grad[..., k2:].any()
+
+
+def test_local_combine_backward_reference_is_the_loops_gradient():
+    """The plain backward equals autograd of the plain forward loop in f32,
+    and in bf16 up to dsrc's rounding (autograd rounds it at every offset)."""
+    src, v, g, k2 = _combine_case(3, 5, "float32", seed=3)
+    ts, tv = T(src).requires_grad_(), T(v).requires_grad_()
+    local_combine_reference(ts, tv, 3).backward(T(g))
+    dsrc, dv = local_combine_backward_reference(T(src), T(v), T(g), 3)
+    np.testing.assert_allclose(dsrc.numpy(), ts.grad.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(dv.numpy(), tv.grad[..., :k2].numpy(), atol=1e-5, rtol=1e-5)
+    assert dv.shape[-1] == k2
+    only_src = local_combine_backward_reference(None, T(v), T(g), 3, need_v=False)
+    only_v = local_combine_backward_reference(T(src), None, T(g), 3, need_src=False)
+    assert only_src[1] is None and only_v[0] is None
+    assert torch.equal(only_src[0], dsrc) and torch.equal(only_v[1], dv)
+
+
+def test_local_combine_gradcheck_float64():
+    rng = np.random.RandomState(8)
+    src = T(rng.randn(1, 3 + 4, 4 + 4, 2)).requires_grad_()
+    v = T(rng.randn(1, 3, 4, 25 + 2)).requires_grad_()
+    assert torch.autograd.gradcheck(lambda s_, v_: local_combine(s_, v_, 2), (src, v))
+
+
+@pytest.mark.parametrize("side", ["src", "v"])
+def test_local_combine_one_sided_gradient(side):
+    """Only the side that requires grad gets one (the shift engine's first
+    call has coefficients that come from the no-grad flow), and only its
+    input is kept for the backward."""
+    src, v, g, _ = _combine_case(2, 3, "float32", seed=5)
+    ts, tv = T(src), T(v)
+    (ts if side == "src" else tv).requires_grad_()
+    out = local_combine(ts, tv, 2)
+    saved = out.grad_fn.saved_tensors
+    assert (saved[0] is None) == (side == "src") and (saved[1] is None) == (side == "v")
+    out.backward(T(g))
+    full_s, full_v = local_combine_backward_reference(T(src), T(v), T(g), 2)
+    if side == "src":
+        assert tv.grad is None and torch.equal(ts.grad, full_s)
+    else:
+        assert ts.grad is None and torch.equal(tv.grad[..., :25], full_v)
+        assert not tv.grad[..., 25:].any()
+    with torch.no_grad():
+        assert local_combine(T(src), T(v), 2).grad_fn is None
 
 
 def _random_scene(seed=0, b=2, f=300):

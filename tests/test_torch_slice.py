@@ -26,6 +26,10 @@ from hoig_torch.models.convert import generator_state_dict_from_flax
 from hoig_torch.train.model_api import batch_as_torch, flow_only, forward_only
 from hoig_torch.train.trainer import TrainConfig, build_generator
 
+# parallel test workers each run torch's CPU kernels; one intra-op thread per
+# worker keeps them from contending for the same cores
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 S, B = 64, 2
 _DIMS = dict(bg_dim=8, img_dim=3, obj_dim=3, img_cond_dim=3, obj_cond_dim=12)
@@ -92,6 +96,13 @@ def test_entry_points_default_to_cuda():
         NetworksFactory.get_by_name("generator_spade_attn", **_DIMS, conv_dim=8, repeat_num=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         MANOModel.synthetic(0).as_torch()
+    from hoig_torch.models.vgg import init_vgg
+    from hoig_torch.train.trainer import build_networks
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_networks(TrainConfig(conv_dim=8, repeat_num=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_vgg()
 
 
 @pytest.mark.parametrize("alone", [False, True])
