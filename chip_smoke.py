@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path and its GAN training step on one
-NVIDIA GPU.
+NVIDIA GPU, with the shift attention engine and with the fused one.
 
     python3 chip_smoke.py [--out DIR]     # from the root of a checkout, one card
 
@@ -20,7 +20,25 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
   5. time the serving call (>= 5 calls after warm-up), assert 18 / 1 / 2
      launches of the combine / rasterizer / gather kernels per call and
      finite outputs;
-  6. the training step (make_train_step: conditioning, generator, G losses
+  6. the fused attention engine (corner_engine "pallas", the four B4
+     kernels of hoig_torch/csrc/attn_fused.cu) on the same model, data and
+     weights: (a) one serving call from launch counters at 0 (9 / 1 / 2
+     launches of B4-fwd / rasterizer / gather, no combine) with B4-fwd held
+     against its plain version on the nine recorded inputs; (b) one training
+     step (remat off) from counters at 0 (9 of each B4 kernel, 1 / 2 of B2 /
+     B3), each backward kernel held against its plain version on the
+     recorded inputs, finite metrics, every G weight moved; the same first
+     step twice more with remat off (their G gradients measure the card's
+     run-to-run noise) and once with remat and remat_attn on (18 B4-fwd
+     launches: the recompute runs each layer's forward again), its G
+     gradients held against the remat-off step's; (c) all four kernels on
+     ragged shapes; (d) fused and shift engines agree on the card
+     in f32 (TF32 off), 128 px, batch 1, outputs and the gradients of a fixed
+     scalar; (e) the fused serving call and step timed as in phases 5 and 7,
+     each B4 kernel and its plain version timed, and the shift engine's
+     ExtractorAttn on the same layer inputs as a yardstick (the training
+     state is freed before phase 7, and rebuilt for phase 8);
+  7. the training step (make_train_step: conditioning, generator, G losses
      with VGG and the PatchGAN-4 discriminator, both Adam updates) at full
      width, 256 px, batch 4, bf16, shift engine: one step from launch
      counters at 0 with the backward kernels' inputs recorded, then bwd_src
@@ -29,9 +47,9 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      with the per-step launch counts (18 / 18 / 9 / 1 / 2) asserted, finite
      metrics, every weight moved, D bit-equal across a gated step; the same
      again with the bf16 remat defaults for the memory peak;
-  7. one profiler window over two serving calls and one training step splits
-     the device time of each by kernel;
-  8. print the kernels line, the card line and, last, the result line.
+  8. one profiler window over two serving calls and one training step with
+     each engine splits the device time of each by kernel;
+  9. print the kernels line, the card line and, last, the result line.
 
 Details (result.json, profile.txt) go to --out, by default build/chip_smoke/.
 """
@@ -50,9 +68,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 non-tensor FLOP/s
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 non-tensor
+# FLOP/s, bf16 dense tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 # source of each kernel and the TPU kernel it replaces
 KERNELS = {
     "local_combine": ("hoig_torch/csrc/local_combine.cu", "hoig_tpu/ops/local_combine.py:50"),
@@ -61,14 +81,34 @@ KERNELS = {
     "local_combine_bwd_v": ("hoig_torch/csrc/local_combine.cu", "hoig_tpu/ops/local_combine.py:80"),
     "rasterizer": ("hoig_torch/csrc/rasterizer.cu", "hoig_tpu/ops/rasterizer_pallas.py:45"),
     "table_gather": ("hoig_torch/csrc/table_gather.cu", "hoig_tpu/ops/table_gather.py:77"),
+    "attn_fused_fwd": ("hoig_torch/csrc/attn_fused.cu", "hoig_tpu/ops/attn_pallas.py:211"),
+    "attn_fused_bwd_c": ("hoig_torch/csrc/attn_fused.cu", "hoig_tpu/ops/attn_pallas.py:628"),
+    "attn_fused_bwd_a_gsrc": ("hoig_torch/csrc/attn_fused.cu", "hoig_tpu/ops/attn_pallas.py:321"),
+    "attn_fused_bwd_a_dw": ("hoig_torch/csrc/attn_fused.cu", "hoig_tpu/ops/attn_pallas.py:409"),
 }
+FUSED = ("attn_fused_fwd", "attn_fused_bwd_c", "attn_fused_bwd_a_gsrc", "attn_fused_bwd_a_dw")
 # launches per serving call, and per training step: each of the 9 attention
 # layers combines twice forward; both calls need dsrc, only the second (whose
 # coefficients come from the attention, not from the no-grad flow) needs dv
 LAUNCHES_PER_CALL = {"local_combine": 18, "rasterizer": 1, "table_gather": 2}
 LAUNCHES_PER_STEP = {"local_combine": 18, "local_combine_bwd_src": 18, "local_combine_bwd_v": 9,
                      "rasterizer": 1, "table_gather": 2}
+# the fused engine: one forward and one backward of each of the 9 layers
+FUSED_LAUNCHES_PER_CALL = {"attn_fused_fwd": 9, "rasterizer": 1, "table_gather": 2}
+FUSED_LAUNCHES_PER_STEP = {**{k: 9 for k in FUSED}, "rasterizer": 1, "table_gather": 2}
+# under remat_attn the backward recomputes each layer's forward
+FUSED_LAUNCHES_PER_STEP_REMAT = dict(FUSED_LAUNCHES_PER_STEP, attn_fused_fwd=18)
 IMAGE, BATCH = 256, 4
+# B4 kernel vs plain version on the card. f32 inputs: within 1e-5 of the
+# output's largest magnitude (only the order of the f32 sums differs).
+# bf16 inputs: `out` and the source gradients within one bf16 ulp (2^-7) of
+# the largest magnitude (a last-bit difference of an f32 sum can move a
+# bf16-rounded product or output by one ulp); the f32 residuals acc, attn,
+# g_attn and dW within 1e-4 of it (channel sums of up to 76,176 terms in
+# another order).
+TOL_F32 = 1e-5
+TOL_BF16 = 2.0 ** -7
+TOL_RESID = 1e-4
 
 
 def log(*a):
@@ -145,10 +185,12 @@ def recording(rec: Recorder):
     import hoig_torch.geometry.conditioning as cond
     import hoig_torch.geometry.renderer as rend
     import hoig_torch.models.generator as gen
+    import hoig_torch.ops.attn_fused as af
     import hoig_torch.ops.local_combine as lc
     import hoig_torch.ops.rasterizer_cuda as rc
 
-    sites = [(gen, "local_combine", "local_combine"),
+    sites = [(af, name, name) for name in FUSED] + [
+             (gen, "local_combine", "local_combine"),
              (lc, "local_combine_backward", "local_combine_backward"),
              (cond, "rasterize_fim_wim_auto", "rasterizer"),
              (rc, "gather_rows", "table_gather"),
@@ -167,9 +209,12 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, tc_flops: float = 0.0) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over their
+    peak: FP32 on the CUDA cores, and bf16 products (`tc_flops`) on the
+    tensor cores."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = (flops / PEAK_FP32_FLOPS + tc_flops / PEAK_BF16_TC_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -541,55 +586,70 @@ def _opt_tensors(opt) -> dict:
             if hasattr(v, "shape")}
 
 
-def training_phase(env, ccfg, batch, serve_fn, out_dir: Path) -> tuple[dict, dict, dict]:
-    """The GAN training step at full width on the card, and the profiler
-    window over `serve_fn` and one step (see the module docstring, phases 6
-    and 7). Returns (kernel results of bwd_src / bwd_v, the training numbers,
-    the profile)."""
+def train_config(engine: str, **remat):
+    """The full-width bf16 training configuration of phases 6 and 7."""
+    import torch
+
+    from hoig_torch.train.trainer import TrainConfig
+
+    return TrainConfig(conv_dim=64, repeat_num=6, image_size=IMAGE, use_vgg=True, mask_bce=True,
+                       corner_engine=engine, compute_dtype=torch.bfloat16, **remat)
+
+
+def build_step(env, ccfg, tcfg):
+    """A fresh training state (weights from seed 0) and its step function."""
     import torch
 
     from hoig_torch.models.vgg import init_vgg
+    from hoig_torch.train.trainer import build_networks, init_state, make_train_step
+
+    state = init_state(*build_networks(tcfg, device="cuda", seed=0), tcfg)
+    vgg = init_vgg(seed=2, compute_dtype=torch.bfloat16, device="cuda")
+    return state, make_train_step(vgg, env["tables"], env["mano_params"], ccfg, tcfg)
+
+
+def counted_step(state, step, batch, d_trainable, expected: dict):
+    """One step from launch counters at 0; asserts the launches and finite metrics."""
+    import torch
+
     from hoig_torch.ops import _cuda
-    from hoig_torch.train.environment import resolve_corner_engine
-    from hoig_torch.train.trainer import TrainConfig, build_networks, init_state, make_train_step
 
-    def config(**remat):
-        return TrainConfig(conv_dim=64, repeat_num=6, image_size=IMAGE, use_vgg=True, mask_bce=True,
-                           corner_engine=resolve_corner_engine("auto", bf16=True),
-                           compute_dtype=torch.bfloat16, **remat)
+    _cuda.reset_launch_counts()
+    state, m = step(state, batch, d_trainable)
+    torch.cuda.synchronize()
+    got = _cuda.launch_counts()
+    check(got == expected, f"per-step launches {got} != {expected}")
+    check(all(bool(torch.isfinite(v)) for v in m.values()), f"non-finite metrics {m}")
+    return m
 
-    def build(tcfg):
-        state = init_state(*build_networks(tcfg, device="cuda", seed=0), tcfg)
-        vgg = init_vgg(seed=2, compute_dtype=torch.bfloat16, device="cuda")
-        return state, make_train_step(vgg, env["tables"], env["mano_params"], ccfg, tcfg)
 
-    def counted_step(state, step, d_trainable):
-        _cuda.reset_launch_counts()
-        state, m = step(state, batch, d_trainable)
-        torch.cuda.synchronize()
-        got = _cuda.launch_counts()
-        check(got == LAUNCHES_PER_STEP, f"per-step launches {got} != {LAUNCHES_PER_STEP}")
-        check(all(bool(torch.isfinite(v)) for v in m.values()), f"non-finite metrics {m}")
-        return m
+def timed_steps(state, step, batch, expected: dict, warm: int, n: int):
+    """Host ms of n steps after `warm` ones, and the peak device MiB."""
+    import torch
 
-    def timed(state, step, warm, n):
-        for _ in range(warm):
-            counted_step(state, step, True)
-        torch.cuda.reset_peak_memory_stats()
-        ms = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            counted_step(state, step, True)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        return ms, torch.cuda.max_memory_allocated() / 2**20
+    for _ in range(warm):
+        counted_step(state, step, batch, True, expected)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        counted_step(state, step, batch, True, expected)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, torch.cuda.max_memory_allocated() / 2**20
 
-    # remat off: the recorded step, the kernel checks, the timed steps, the gated step
-    tcfg = config(remat=False)
-    state, step = build(tcfg)
+
+def recorded_step(state, step, batch, expected: dict, rec) -> tuple[dict, dict]:
+    """The first step from launch counters at 0, with the kernels' inputs
+    recorded; asserts the launches, finite metrics, and that every weight got
+    a finite gradient and moved unless its gradient is exactly zero (constant
+    object images, a conv bias before a plain norm). Returns (metrics, launches)."""
+    import torch
+
+    from hoig_torch.ops import _cuda
+
     n_g = sum(p.numel() for p in state.g.parameters())
     n_d = sum(p.numel() for p in state.d.parameters())
     before = _snapshot(dict(state.g.named_parameters())), _snapshot(dict(state.d.named_parameters()))
-    rec = Recorder()
     with recording(rec):
         torch.cuda.synchronize()
         _cuda.reset_launch_counts()
@@ -597,13 +657,9 @@ def training_phase(env, ccfg, batch, serve_fn, out_dir: Path) -> tuple[dict, dic
         torch.cuda.synchronize()
         launches = _cuda.launch_counts()
     log(f"  step 1 launches: {launches}; G {n_g / 1e6:.1f} M, D {n_d / 1e6:.1f} M parameters")
-    check(launches == LAUNCHES_PER_STEP, f"training step launches {launches} != {LAUNCHES_PER_STEP}")
-    check(len(rec.calls["local_combine_backward"]) == LAUNCHES_PER_STEP["local_combine_bwd_src"],
-          f"{len(rec.calls['local_combine_backward'])} backward calls recorded")
+    check(launches == expected, f"training step launches {launches} != {expected}")
     check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"non-finite metrics {metrics}")
     log("  step 1 metrics: " + ", ".join(f"{k} {float(v):.4g}" for k, v in metrics.items()))
-    # every weight has a finite gradient and moved, unless its gradient is
-    # exactly zero (constant object images, a conv bias before a plain norm)
     for net, snap, label in ((state.g, before[0], "G"), (state.d, before[1], "D")):
         still = 0
         for name, p in net.named_parameters():
@@ -615,18 +671,42 @@ def training_phase(env, ccfg, batch, serve_fn, out_dir: Path) -> tuple[dict, dic
         check(still <= 0.05 * len(snap), f"{still} of {len(snap)} {label} weights did not move")
         log(f"  {label}: {len(snap) - still} of {len(snap)} weight tensors moved "
             f"({still} with an all-zero gradient)")
-    del before
+    return {k: float(v) for k, v in metrics.items()}, launches
+
+
+def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
+                   ) -> tuple[dict, dict, dict]:
+    """The GAN training step at full width on the card with the shift engine,
+    and the profiler window over `regions`, the regions `more_regions()`
+    builds, and one such step (see the module docstring, phases 7 and 8).
+    Returns (kernel results of bwd_src / bwd_v, the training numbers, the
+    profile)."""
+    import torch
+
+    from hoig_torch.train.environment import resolve_corner_engine
+
+    def config(**remat):
+        return train_config(resolve_corner_engine("auto", bf16=True), **remat)
+
+    # remat off: the recorded step, the kernel checks, the timed steps, the gated step
+    state, step = build_step(env, ccfg, config(remat=False))
+    n_g = sum(p.numel() for p in state.g.parameters())
+    n_d = sum(p.numel() for p in state.d.parameters())
+    rec = Recorder()
+    metrics, launches = recorded_step(state, step, batch, LAUNCHES_PER_STEP, rec)
+    check(len(rec.calls["local_combine_backward"]) == LAUNCHES_PER_STEP["local_combine_bwd_src"],
+          f"{len(rec.calls['local_combine_backward'])} backward calls recorded")
     results = check_local_combine_backward(rec.calls["local_combine_backward"])
     for name in results:
         results[name]["launches"] = launches[name]
     del rec
 
-    ms, peak = timed(state, step, warm=3, n=6)
+    ms, peak = timed_steps(state, step, batch, LAUNCHES_PER_STEP, warm=3, n=6)
     # the gated step leaves D and its Adam state bit-equal
     d_before = _snapshot(dict(state.d.named_parameters()))
     o_before = _snapshot(_opt_tensors(state.opt_d))
     g_before = _snapshot(dict(list(state.g.named_parameters())[:1]))
-    m_gated = counted_step(state, step, False)
+    m_gated = counted_step(state, step, batch, False, LAUNCHES_PER_STEP)
     check(all(torch.equal(v, d_before[k]) for k, v in state.d.named_parameters()),
           "the gated step moved D's weights")
     o_after = _opt_tensors(state.opt_d)
@@ -637,32 +717,460 @@ def training_phase(env, ccfg, batch, serve_fn, out_dir: Path) -> tuple[dict, dic
     check(all(k in m_gated for k in ("loss_D", "d_real", "d_fake")), "gated step metrics incomplete")
     med = statistics.median(ms)
     train = dict(step_ms=med, images_per_s=BATCH / (med / 1e3), peak_mem_mb=peak, steps=len(ms),
-                 step_ms_all=ms, launches=launches, params_g=n_g, params_d=n_d,
-                 metrics={k: float(v) for k, v in metrics.items()})
+                 step_ms_all=ms, launches=launches, params_g=n_g, params_d=n_d, metrics=metrics)
     log(f"  remat off: step {med:.2f} ms (median of {len(ms)}; {min(ms):.2f}-{max(ms):.2f}), "
         f"{train['images_per_s']:.2f} images/s, peak {peak:.0f} MiB; gated step leaves D bit-equal")
 
-    # 7. one profiler window over both paths
-    log("[7] profiler window: 2 serving calls, 1 training step")
-    profile = profile_window(serve_fn, lambda: counted_step(state, step, True), out_dir)
+    # 8. one profiler window over both paths of both engines
+    log("[8] profiler window: 2 serving calls and 1 training step, each engine")
+    regions = dict(regions, **more_regions(), hoig_train=(
+        lambda: counted_step(state, step, batch, True, LAUNCHES_PER_STEP), 1))
+    profile = profile_window(regions, out_dir)
+    del regions
     train["device_ms"] = profile.get("hoig_train", {}).get("device_ms")
 
     # the same step with the bf16 remat defaults (conv blocks recomputed, the
     # bottleneck and the attention kept): memory peak and step time
     del state, step
     torch.cuda.empty_cache()
-    state, step = build(config(remat=True, remat_bottleneck=False, remat_attn=False))
-    ms, peak = timed(state, step, warm=2, n=4)
+    state, step = build_step(env, ccfg, config(remat=True, remat_bottleneck=False, remat_attn=False))
+    ms, peak = timed_steps(state, step, batch, LAUNCHES_PER_STEP, warm=2, n=4)
     train["remat"] = dict(step_ms=statistics.median(ms), peak_mem_mb=peak, step_ms_all=ms)
     log(f"  remat (conv blocks; bottleneck and attention kept): step "
         f"{train['remat']['step_ms']:.2f} ms (median of {len(ms)}), peak {peak:.0f} MiB")
     return results, train, profile
 
 
+def _fused_cost(name: str, args) -> tuple[float, float, float]:
+    """(bytes, FP32 operations, bf16 tensor-core operations) of one B4 launch
+    on these inputs: each input read once, each output written once; the
+    coefficient terms only where nonzero (4 of 49 for acc and dG, 36 of 121
+    per pixel for phase C and bwd-c). Each 5x5 product is counted over the
+    (H+6) x (W+6) frame of G or dG: the forward needs G only there, and dG is
+    zero outside it, so the gsrc projection and dW pair each of its pixels
+    with the 25 offsets once."""
+    import torch
+
+    F, K2 = 128, 25
+    if name == "attn_fused_bwd_a_gsrc":
+        g_acc, w0s = args[0], args[5]
+        b, h, w, _ = g_acc.shape
+        c, es = w0s.shape[1], w0s.element_size()
+    else:
+        b, h, w, c = args[0].shape
+        es = args[0].element_size()
+    n = b * h * w
+    fields = 4 * n * 4
+    conv_halo = 2.0 * b * (h + 6) * (w + 6) * K2 * c * F
+    if name == "attn_fused_fwd":
+        nbytes = (2 * n * c + K2 * c * F) * es + (2 * n * F + n * K2 + F * K2 + K2) * 4 + fields
+        f32_ops = 2.0 * n * (4 * F + F * K2 + 36 * c)
+        lowp = args[0].dtype != torch.float32
+        return nbytes, f32_ops + (0.0 if lowp else conv_halo), conv_halo if lowp else 0.0
+    if name == "attn_fused_bwd_c":
+        nbytes = 2 * n * c * es + (n * c + 2 * n * K2) * 4 + fields
+        return nbytes, 2.0 * n * 36 * c * 2, 0.0
+    if name == "attn_fused_bwd_a_gsrc":
+        nbytes = K2 * c * F * es + (n * F + n * c) * 4 + fields
+        return nbytes, 2.0 * n * 4 * F + conv_halo, 0.0
+    nbytes = n * c * es + (n * F + K2 * c * F) * 4 + fields
+    return nbytes, 2.0 * n * 4 * F + conv_halo, 0.0
+
+
+def _tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _within(got, ref, rel: float) -> tuple[bool, float]:
+    err = max_err(got, ref)
+    return err <= rel * float(ref.float().abs().max()), err
+
+
+def check_fused_kernel(name: str, calls) -> dict:
+    """A B4 kernel on every recorded call of the main path: against its plain
+    version with the inputs as recorded (bf16) and cast to f32, with the
+    tolerances of TOL_*; then kernel and plain version timed (the kernel
+    behind a GPU sleep, summed over the launches)."""
+    import torch
+
+    from hoig_torch.ops import attn_fused as af
+
+    kern, plain = getattr(af, name), getattr(af, name + "_reference")
+    # per output, under bf16 inputs: out / gsrc one ulp; residuals 1e-4
+    tols = {"attn_fused_fwd": (TOL_BF16, TOL_RESID, TOL_RESID),
+            "attn_fused_bwd_c": (TOL_BF16, TOL_RESID),
+            "attn_fused_bwd_a_gsrc": (TOL_BF16,), "attn_fused_bwd_a_dw": (TOL_RESID,)}[name]
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0.0, f32=0.0, tc=0.0)
+    err16 = [0.0] * len(tols)
+    err32 = [0.0] * len(tols)
+    exact = [True] * len(tols)
+    shapes = []
+    for args, _ in calls:
+        args = tuple(a.detach() for a in args)
+        lowp = any(a.dtype == torch.bfloat16 for a in args)
+        shapes.append(list(args[0].shape))
+        for cast in ((False, True) if lowp else (True,)):
+            a_ = tuple(a.float() for a in args) if cast else args
+            got, ref = _tuple(kern(*a_)), _tuple(plain(*a_))
+            for i, (g_, r_) in enumerate(zip(got, ref)):
+                tol = TOL_F32 if cast else tols[i]
+                ok, e = _within(g_, r_, tol)
+                check(ok and g_.shape == r_.shape and g_.dtype == r_.dtype,
+                      f"{name} output {i} ({'f32' if cast else 'bf16'}) at {list(args[0].shape)}: "
+                      f"max abs err {e} above {tol} of {float(r_.float().abs().max())}")
+                errs = err32 if cast else err16
+                errs[i] = max(errs[i], e)
+                if not cast:
+                    exact[i] = exact[i] and torch.equal(g_, r_)
+        tot["ms"] += device_ms(lambda: kern(*args))
+        tot["plain_ms"] += device_ms(lambda: plain(*args), reps=2, behind_sleep=False)
+        for k, v in zip(("bytes", "f32", "tc"), _fused_cost(name, args)):
+            tot[k] += v
+    bnd, by = bound_ms(tot["bytes"], tot["f32"], tot["tc"])
+    log(f"  {name}: {len(calls)} calls {sorted({tuple(s) for s in shapes})}; kernel {tot['ms']:.4f} ms,"
+        f" plain {tot['plain_ms']:.2f} ms, bound {bnd:.4f} ms ({by}; {tot['bytes'] / 1e6:.1f} MB, "
+        f"{tot['f32'] / 1e9:.1f} GFLOP FP32, {tot['tc'] / 1e9:.1f} GFLOP bf16); max abs err per "
+        f"output bf16 {['%.3g' % e for e in err16]} (bit-exact {exact}), f32 "
+        f"{['%.3g' % e for e in err32]}")
+    return dict(max_abs_err=max(err16 + err32), ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=bnd, bound_by=by, library_ms=None, err_bf16=err16, err_f32=err32,
+                bit_exact_bf16=exact, bytes=tot["bytes"], fp32_flop=tot["f32"],
+                bf16_flop=tot["tc"], calls=len(calls))
+
+
+def check_fused_ragged() -> None:
+    """(c) All four B4 kernels against their plain versions on small shapes
+    off the tile grids: H != W, frames that are not multiples of the 8x8
+    tiles, channel counts past one 64- or 128-wide chunk, f32 and bf16."""
+    import torch
+
+    from hoig_torch.ops import attn_fused as af
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    for b, h, w, c in ((1, 13, 11, 6), (2, 9, 20, 70), (1, 17, 8, 130)):
+        for dtype in (torch.float32, torch.bfloat16):
+            src = randn(b, h, w, c).to(dtype)
+            w0s = (randn(25, c, 128) / (25 * c) ** 0.5).to(dtype)
+            flow = torch.rand(b, h, w, 2, device="cuda", generator=gen) * 4.9 - 2.95
+            fields = af.flow_fields(flow)
+            fwd_args = (src, 0.1 * randn(b, h, w, 128), w0s, randn(128, 25) / 128 ** 0.5,
+                        0.1 * randn(1, 25), *fields)
+            attn = af.attn_fused_fwd(*fwd_args)[2]
+            g_acc = randn(b, h, w, 128)
+            cases = {"attn_fused_fwd": fwd_args,
+                     "attn_fused_bwd_c": (src, *fields, attn, randn(b, h, w, c).to(dtype)),
+                     "attn_fused_bwd_a_gsrc": (g_acc, *fields, w0s),
+                     "attn_fused_bwd_a_dw": (src, g_acc, *fields)}
+            for name, args in cases.items():
+                got = _tuple(getattr(af, name)(*args))
+                ref = _tuple(getattr(af, name + "_reference")(*args))
+                for i, (g_, r_) in enumerate(zip(got, ref)):
+                    tol = TOL_F32 if dtype == torch.float32 else (
+                        TOL_BF16 if (name, i) in (("attn_fused_fwd", 0), ("attn_fused_bwd_c", 0),
+                                                  ("attn_fused_bwd_a_gsrc", 0)) else TOL_RESID)
+                    ok, e = _within(g_, r_, tol)
+                    check(ok, f"{name} output {i} differs at {(b, h, w, c)} {dtype}: {e}")
+    log("  (c) ragged shapes (1,13,11,6), (2,9,20,70), (1,17,8,130), f32 and bf16: all four B4 "
+        "kernels agree with their plain versions")
+
+
+def shift_yardstick(layer_inputs, gen_shift) -> tuple[float, float]:
+    """Device ms of the shift engine's ExtractorAttn on the fused path's own
+    layer inputs, summed over the layers: its forward, and its backward
+    (forward + backward less forward). Timed with events around each call,
+    not queued ahead: the module launches many small kernels."""
+    import torch
+
+    fwd = bwd = 0.0
+    for name, (src, tgt, flow) in layer_inputs:
+        mod = gen_shift.get_submodule(name)
+        s_, t_, f_ = (x.detach().clone() for x in (src, tgt, flow))
+        with torch.inference_mode():
+            f_ms = device_ms(lambda: mod(s_, t_, f_), reps=3, behind_sleep=False)
+        s_.requires_grad_(True)
+        t_.requires_grad_(True)
+        cot = torch.ones_like(s_)
+        fb_ms = device_ms(lambda: torch.autograd.backward(mod(s_, t_, f_), cot), reps=3,
+                          behind_sleep=False)
+        mod.zero_grad(set_to_none=True)
+        fwd += f_ms
+        bwd += max(fb_ms - f_ms, 0.0)
+    return fwd, bwd
+
+
+def engines_agree() -> dict:
+    """(d) The fused and shift engines on the card in f32 (TF32 off), full
+    width, 128 px, batch 1, one state dict: the ten outputs within the JAX
+    package's bound for its engine comparison (rtol 2e-4, atol 2e-5,
+    tests/test_models.py), and the gradients of a fixed scalar of them
+    w.r.t. every weight, leaf by leaf, within the two bounds of the CPU
+    tests' step comparisons (tests/test_torch_train.py): 2e-4 of the leaf's
+    largest entry + 1e-2 of the largest gradient (the leaves whose gradient
+    is 1e-2 to 1e-5 of the largest carry the slope of the outputs' last-bit
+    differences), and 0.15 of the leaf's largest entry + 1e-6 of the largest
+    gradient (what a missing or mis-signed path breaks in any leaf)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hoig_torch.data.synthetic import synthetic_batch, synthetic_environment
+    from hoig_torch.geometry.conditioning import ConditioningConfig
+    from hoig_torch.train.model_api import batch_as_torch, flow_only
+    from hoig_torch.train.trainer import TrainConfig, build_generator, generator_kwargs
+
+    s = 128
+    env = synthetic_environment(2, s, device="cuda")
+    tables_np = env["tables_np"]
+    tables_np.obj_tex = (np.random.RandomState(5).rand(*tables_np.obj_tex.shape) * 2 - 1).astype(
+        np.float32)
+    env = dict(env, tables=tables_np.as_torch("cuda"))
+    batch = batch_as_torch(synthetic_batch(1, env["obj_verts"], image_size=s, seed=3), "cuda")
+    flow = flow_only(batch, env, ConditioningConfig(image_size=s))
+    kw = generator_kwargs({k: (None if v is None else v.clone()) for k, v in flow.items()},
+                          batch["maskA"], batch["maskB"], True)
+    cfg = TrainConfig(conv_dim=64, repeat_num=6, corner_engine="shift",
+                      compute_dtype=torch.float32, remat=False)
+    g_s = build_generator(cfg, device="cuda", seed=1)
+    g_f = build_generator(dataclasses.replace(cfg, corner_engine="pallas"), device="cuda", seed=1)
+    g_f.load_state_dict(g_s.state_dict())
+    with torch.inference_mode():
+        o_s, o_f = g_s(**kw), g_f(**kw)
+    err = max(max_err(a, b) for a, b in zip(o_f, o_s))
+    for i, (a, b) in enumerate(zip(o_f, o_s)):
+        check(torch.allclose(a, b, rtol=2e-4, atol=2e-5),
+              f"fused vs shift engine output {i}: max abs err {max_err(a, b)}")
+    wgen = torch.Generator().manual_seed(7)
+    weights = [torch.randn(o.shape, generator=wgen).cuda() for o in o_s]
+
+    def grads(model):
+        outs = model(**kw)
+        scalar = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+        named = list(model.named_parameters())
+        return dict(zip((n for n, _ in named), torch.autograd.grad(scalar, [p for _, p in named])))
+
+    gr_s = grads(g_s)
+    agree = grads_agree(grads(g_f), gr_s, "fused vs shift")
+    log(f"  (d) engines agree, f32 128 px b1: outputs max abs err {err:.3g} (rtol 2e-4, atol 2e-5); "
+        f"gradients w.r.t. {len(gr_s)} weight tensors worst {agree['grad_err_of_leaf_max']:.3g} of "
+        f"a leaf's max (bound 0.15), {agree['grad_err_of_tree_max']:.3g} of the largest gradient "
+        f"{agree['tree_max']:.3g} (bound 1e-2)")
+    return dict(output_err=err, **agree)
+
+
+def grads_agree(got: dict, ref: dict, label: str, slack: dict | None = None) -> dict:
+    """Two gradients of every weight, leaf by leaf, within the two bounds of
+    the CPU tests' step comparisons (see engines_agree), each widened by
+    slack[leaf] when given; logs the three worst leaves and returns the worst
+    errors and how many leaves are bit-equal."""
+    import torch
+
+    check(got.keys() == ref.keys(), f"{label}: gradients of other weights")
+    tree_max = max(float(v.abs().max()) for v in ref.values())
+    rows = []
+    for name, r in ref.items():
+        e, top = max_err(got[name], r), float(r.abs().max())
+        extra = slack[name] if slack else 0.0
+        check(bool(torch.isfinite(got[name]).all()), f"{label}: non-finite gradient of {name}")
+        check(e <= 2e-4 * top + 1e-2 * tree_max + extra and e <= 0.15 * top + 1e-6 * tree_max + extra,
+              f"gradient of {name}: {label} max abs err {e} (leaf max {top}, largest {tree_max}, "
+              f"slack {extra})")
+        rows.append((e / top if top > 1e-6 * tree_max else 0.0, e, top, name))
+    rows.sort(reverse=True)
+    for rel, e, top, name in rows[:3]:
+        log(f"    {name}: max abs err {e:.3g}, {rel:.3g} of its largest entry {top:.3g}")
+    return dict(grad_err_of_leaf_max=rows[0][0], grad_err_of_tree_max=max(r[1] for r in rows) / tree_max,
+                tree_max=tree_max, bit_equal_leaves=sum(torch.equal(got[n], r) for n, r in ref.items()),
+                leaves=len(ref))
+
+
+def time_serving(gen, env, ccfg, batch, tcfg, expected: dict, n: int = 7) -> dict:
+    """Host ms of n serving calls (conditioning, then generator) after two
+    warm-up calls, each with its launches asserted and finite outputs."""
+    import torch
+
+    from hoig_torch.ops import _cuda
+    from hoig_torch.train.model_api import flow_only, forward_only
+
+    for _ in range(2):
+        forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cond_ms, gen_ms = [], []
+    for _ in range(n):
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        flow = flow_only(batch, env, ccfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = forward_only(gen, flow, batch, tcfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(_cuda.launch_counts() == expected,
+              f"per-call launches {_cuda.launch_counts()} != {expected}")
+        check(all(torch.isfinite(o).all() for o in outs), "non-finite serving outputs")
+        cond_ms.append((t1 - t0) * 1e3)
+        gen_ms.append((t2 - t1) * 1e3)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    total = [a + b for a, b in zip(cond_ms, gen_ms)]
+    serve = dict(conditioning_ms=statistics.median(cond_ms), generator_ms=statistics.median(gen_ms),
+                 call_ms=statistics.median(total),
+                 images_per_s=BATCH / (statistics.median(total) / 1e3),
+                 peak_mem_mb=peak_mb, calls=len(total), cond_ms_all=cond_ms, gen_ms_all=gen_ms)
+    log(f"  conditioning {serve['conditioning_ms']:.2f} ms, generator {serve['generator_ms']:.2f} ms,"
+        f" call {serve['call_ms']:.2f} ms, {serve['images_per_s']:.2f} images/s, peak "
+        f"{peak_mb:.0f} MiB (median of {len(total)})")
+    return serve
+
+
+def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
+    """Phase 6 (see the module docstring). Returns (kernel results, the
+    phase's numbers, a function that builds the profiler regions of the
+    fused serving call and step). The phase frees its generator and training
+    state before it returns, so that phase 7's memory peaks count the shift
+    engine's alone; the returned function makes fresh ones for the profiler."""
+    import dataclasses
+
+    import torch
+
+    from hoig_torch.models.generator import ExtractorAttn
+    from hoig_torch.ops import _cuda
+    from hoig_torch.train.model_api import flow_only, forward_only
+    from hoig_torch.train.trainer import build_generator
+
+    # (a) serving, from launch counters at 0, on the shift generator's weights
+    tcfg = dataclasses.replace(tcfg_shift, corner_engine="pallas")
+    gen = build_generator(tcfg, device="cuda", seed=0)
+    gen.load_state_dict(gen_shift.state_dict())
+    layer_inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: layer_inputs.append((name, args)))
+        for name, m in gen.named_modules() if isinstance(m, ExtractorAttn)]
+    rec = Recorder()
+    with recording(rec):
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        outs = forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)
+        torch.cuda.synchronize()
+        launches = _cuda.launch_counts()
+    for h in hooks:
+        h.remove()
+    log(f"  (a) fused serving call launches: {launches}")
+    check(launches == FUSED_LAUNCHES_PER_CALL,
+          f"fused serving launches {launches} != {FUSED_LAUNCHES_PER_CALL}")
+    check(all(torch.isfinite(o).all() for o in outs), "non-finite fused serving outputs")
+    check(len(layer_inputs) == 9, f"{len(layer_inputs)} attention layers ran")
+    results = {"attn_fused_fwd": check_fused_kernel("attn_fused_fwd", rec.calls["attn_fused_fwd"])}
+    del rec
+    yard_fwd, yard_bwd = shift_yardstick(layer_inputs, gen_shift)
+    log(f"  yardstick: the shift engine's ExtractorAttn on the same 9 layer inputs, forward "
+        f"{yard_fwd:.3f} ms, backward {yard_bwd:.3f} ms")
+    del layer_inputs
+    log(f"  (e) fused serving call timing: {IMAGE} px, batch {BATCH}, bf16")
+    serve = time_serving(gen, env, ccfg, batch, tcfg, FUSED_LAUNCHES_PER_CALL)
+
+    # (b) one training step, remat off, from launch counters at 0
+    log("  (b) fused training step: 256 px, batch 4, bf16, remat off")
+    state, step = build_step(env, ccfg, train_config("pallas", remat=False))
+    rec = Recorder()
+    metrics, step_launches = recorded_step(state, step, batch, FUSED_LAUNCHES_PER_STEP, rec)
+    for name in FUSED[1:]:
+        check(len(rec.calls[name]) == 9, f"{name}: {len(rec.calls[name])} calls recorded")
+        results[name] = check_fused_kernel(name, rec.calls[name])
+    del rec
+    for name in FUSED:
+        results[name]["launches"] = step_launches[name]
+        results[name]["yardstick_ms"] = yard_fwd if name == FUSED[0] else yard_bwd
+        results[name]["yardstick"] = ("shift-engine ExtractorAttn " +
+                                      ("forward" if name == FUSED[0] else "backward (all of it)"))
+
+    ms, peak = timed_steps(state, step, batch, FUSED_LAUNCHES_PER_STEP, warm=3, n=6)
+    med = statistics.median(ms)
+    train = dict(step_ms=med, images_per_s=BATCH / (med / 1e3), peak_mem_mb=peak, steps=len(ms),
+                 step_ms_all=ms, launches=step_launches, metrics=metrics)
+    log(f"  (e) fused step {med:.2f} ms (median of {len(ms)}; {min(ms):.2f}-{max(ms):.2f}), "
+        f"{train['images_per_s']:.2f} images/s, peak {peak:.0f} MiB")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (b) the same first step (fresh weights from seed 0, same batch) three
+    # times more: twice with remat off, then with the conv blocks and the
+    # attention layers rematerialized. The recompute runs the same kernels on
+    # the same inputs, but no two steps on the card need agree to the last
+    # bit: the gathers (torch.gather, index_select) scatter-add their
+    # gradients with float atomics in no fixed order, and bf16 activation
+    # gradients carry such differences onward; in the leaves whose gradient
+    # is zero up to rounding (a conv bias before a norm) they are all there
+    # is. So the two remat-off steps measure that noise leaf by leaf, and the
+    # remat step is held within grads_agree's bounds widened by three times
+    # it (one sample of a difference of two runs, against another). cuDNN is
+    # held to its deterministic algorithms for these steps, so that a
+    # recompute under other memory pressure does not pick another
+    # convolution algorithm
+    def fresh_step_grads(**remat):
+        state, step = build_step(env, ccfg, train_config("pallas", **remat))
+        torch.backends.cudnn.deterministic = True
+        try:
+            counted_step(state, step, batch, True, FUSED_LAUNCHES_PER_STEP_REMAT
+                         if remat.get("remat") else FUSED_LAUNCHES_PER_STEP)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        grads = {n: p.grad for n, p in state.g.named_parameters()}
+        del state, step
+        torch.cuda.empty_cache()
+        return grads
+
+    log("  (b) the fused step again, twice remat off, then with remat and remat_attn on")
+    g_grads = fresh_step_grads(remat=False)
+    g_again = fresh_step_grads(remat=False)
+    noise = {n: max_err(g_again[n], r) for n, r in g_grads.items()}
+    n_equal = sum(torch.equal(g_again[n], r) for n, r in g_grads.items())
+    worst = max(noise, key=noise.get)
+    log(f"  remat off twice: {n_equal} of {len(noise)} G gradient leaves bit-equal; largest "
+        f"difference {noise[worst]:.3g} ({worst}, leaf max {float(g_grads[worst].abs().max()):.3g})")
+    del g_again
+    g_remat = fresh_step_grads(remat=True, remat_bottleneck=False, remat_attn=True)
+    remat = grads_agree(g_remat, g_grads, "remat vs remat off",
+                        slack={n: 3.0 * e for n, e in noise.items()})
+    log(f"  remat step: launches {FUSED_LAUNCHES_PER_STEP_REMAT}; G gradients {remat['bit_equal_leaves']} "
+        f"of {remat['leaves']} leaves bit-equal to the remat-off step's, worst "
+        f"{remat['grad_err_of_leaf_max']:.3g} of a leaf's max, {remat['grad_err_of_tree_max']:.3g} of "
+        f"the largest gradient")
+    train["remat_attn"] = dict(remat, remat_off_twice_bit_equal_leaves=n_equal,
+                               remat_off_twice_max_diff=noise[worst])
+    del g_remat, g_grads
+
+    # (c) ragged shapes; (d) the engines agree
+    check_fused_ragged()
+    agree = engines_agree()
+
+    del gen
+    torch.cuda.empty_cache()
+
+    def regions() -> dict:
+        gen = build_generator(tcfg, device="cuda", seed=0)
+        gen.load_state_dict(gen_shift.state_dict())
+        state, step = build_step(env, ccfg, train_config("pallas", remat=False))
+        forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)  # warm-up
+        counted_step(state, step, batch, True, FUSED_LAUNCHES_PER_STEP)
+        return {
+            "hoig_serve_fused": (
+                lambda: forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg), 2),
+            "hoig_train_fused": (
+                lambda: counted_step(state, step, batch, True, FUSED_LAUNCHES_PER_STEP), 1),
+        }
+
+    return results, dict(serving=serve, training=train, serving_launches=launches,
+                         engines_agree=agree), regions
+
+
 # device kernel name -> operator class, first match wins
 KERNEL_CLASSES = (
     ("hand-written kernels", ("combine_fwd_kernel", "combine_bwd_src_kernel", "combine_bwd_v_kernel",
-                              "raster_kernel", "gather_kernel")),
+                              "raster_kernel", "gather_kernel", "conv5_kernel", "fwd_pixel_kernel",
+                              "bwd_c_pixel_kernel", "bwd_c_gather_kernel", "fold_kernel",
+                              "dg_kernel", "dw_kernel", "dw_reduce_kernel")),
     ("convolutions (cuDNN)", ("xmma", "cudnn", "cutlass", "implicit_gemm", "fprop", "dgrad", "wgrad",
                               "conv")),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "cublas")),
@@ -681,23 +1189,20 @@ def kernel_class(name: str) -> str:
     return next((label for label, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
 
 
-def profile_window(serve_fn, train_fn, out_dir: Path) -> dict:
-    """Device time by kernel over two serving calls and one training step, in
-    ONE torch.profiler session (a second session in the same process lost its
-    device events on this machine): the two regions are told apart by the
-    time ranges of their annotations, each closed after a synchronize."""
+def profile_window(regions: dict, out_dir: Path) -> dict:
+    """Device time by kernel over each region {name: (fn, calls)}, in ONE
+    torch.profiler run (a second profiler in the same process lost its
+    device events on this machine): the regions are told apart by the time
+    ranges of their annotations, each closed after a synchronize."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    regions = {"hoig_serve": 2, "hoig_train": 1}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("hoig_serve"):
-            for _ in range(2):
-                serve_fn()
-            torch.cuda.synchronize()
-        with record_function("hoig_train"):
-            train_fn()
-            torch.cuda.synchronize()
+        for region, (fn, n) in regions.items():
+            with record_function(region):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     events = list(prof.events())
     spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
@@ -709,7 +1214,7 @@ def profile_window(serve_fn, train_fn, out_dir: Path) -> dict:
     (out_dir / "profile.txt").write_text(
         prof.key_averages().table(sort_by="device_time_total", row_limit=80))
     out = {}
-    for region, n in regions.items():
+    for region, (_, n) in regions.items():
         if region not in spans:
             log(f"  profiler: no span for {region} (not measured)")
             continue
@@ -728,7 +1233,7 @@ def profile_window(serve_fn, train_fn, out_dir: Path) -> dict:
                         for k, v in by_name.items()), key=lambda r: -r["ms"])
         wall = (hi - lo) / n / 1e3
         log(f"  profiler {region}: device busy {total / n / 1e3:.2f} ms of {wall:.2f} ms wall per "
-            f"{'call' if region == 'hoig_serve' else 'step'} ({total / n / 1e3 / wall:.0%}), "
+            f"{'call' if region.startswith('hoig_serve') else 'step'} ({total / n / 1e3 / wall:.0%}), "
             f"{sum(v[1] for v in by_name.values()) // n} device kernels; top kernels:")
         for row in table[:10]:
             log(f"    {row['ms']:8.3f} ms  x{row['count']:<5d} {row['name']}")
@@ -825,55 +1330,42 @@ def main() -> int:
     # 5. timing at 256 px, batch 4, bf16
     log(f"[5] serving call timing: {IMAGE} px, batch {BATCH}, bf16, shift engine, conv_dim 64, "
         "repeat 6")
-    for _ in range(2):
-        forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cond_ms, gen_ms = [], []
-    for _ in range(7):
-        _cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        flow = flow_only(batch, env, ccfg)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        outs = forward_only(gen, flow, batch, tcfg)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        check(_cuda.launch_counts() == LAUNCHES_PER_CALL,
-              f"per-call launches {_cuda.launch_counts()} != {LAUNCHES_PER_CALL}")
-        check(all(torch.isfinite(o).all() for o in outs), "non-finite serving outputs")
-        cond_ms.append((t1 - t0) * 1e3)
-        gen_ms.append((t2 - t1) * 1e3)
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    total = [a + b for a, b in zip(cond_ms, gen_ms)]
-    serve = dict(conditioning_ms=statistics.median(cond_ms), generator_ms=statistics.median(gen_ms),
-                 call_ms=statistics.median(total),
-                 images_per_s=BATCH / (statistics.median(total) / 1e3),
-                 peak_mem_mb=peak_mb, calls=len(total), cond_ms_all=cond_ms, gen_ms_all=gen_ms)
-    log(f"  conditioning {serve['conditioning_ms']:.2f} ms, generator {serve['generator_ms']:.2f} ms,"
-        f" call {serve['call_ms']:.2f} ms, {serve['images_per_s']:.2f} images/s, peak "
-        f"{peak_mb:.0f} MiB (median of {len(total)})")
+    serve = time_serving(gen, env, ccfg, batch, tcfg, LAUNCHES_PER_CALL)
 
-    # 6. the training step
-    log(f"[6] training step: {IMAGE} px, batch {BATCH}, bf16, shift engine, conv_dim 64, repeat 6, "
+    # 6. the fused attention engine
+    log(f"[6] fused attention engine (corner_engine 'pallas'): {IMAGE} px, batch {BATCH}, bf16, "
+        "conv_dim 64, repeat 6, the shift generator's weights")
+    fused_results, fused, fused_regions = fused_phase(env, ccfg, batch, gen, tcfg)
+    results.update(fused_results)
+
+    # 7. the training step (and 8. the profiler window)
+    log(f"[7] training step: {IMAGE} px, batch {BATCH}, bf16, shift engine, conv_dim 64, repeat 6, "
         "PatchGAN-4, VGG19 loss, mask BCE")
-    bwd_results, train, profile = training_phase(
-        env, ccfg, batch,
-        lambda: forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg), out_dir)
+    regions = {"hoig_serve": (lambda: forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg), 2)}
+    bwd_results, train, profile = training_phase(env, ccfg, batch, regions, fused_regions, out_dir)
     results.update(bwd_results)
+    for path in ("serving", "training"):
+        region = "hoig_serve_fused" if path == "serving" else "hoig_train_fused"
+        fused[path]["device_ms"] = profile.get(region, {}).get("device_ms")
+    del fused_regions
 
-    # 8. report
+    # 9. report
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=train["launches"][name], launches_serving=launches.get(name, 0),
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+        step_launches = fused["training"]["launches"] if name in FUSED else train["launches"]
+        call_launches = fused["serving_launches"] if name in FUSED else launches
+        row = dict(name=name, route="cuda", source=src, replaces=replaces,
+                   launches=step_launches[name], launches_serving=call_launches.get(name, 0),
+                   max_abs_err=r["max_abs_err"], ms=r["ms"],
+                   plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                   library_ms=r["library_ms"])
+        if "yardstick_ms" in r:
+            row.update(yardstick_ms=r["yardstick_ms"], yardstick=r["yardstick"])
+        kernels.append(row)
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                   kernels=results, cpu_compare=cpu_cmp, serving=serve, training=train,
-                  profile=profile)
+                  fused=fused, profile=profile)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,0 +1,792 @@
+// Fused flow-guided local attention (k = 5), forward and backward, for sm_90a.
+//
+// For a pixel p of an (H, W) frame, source src (NHWC, C channels, read
+// edge-padded: index clamped to the frame), fc_0 source-half weights
+// w0s (25, C, 128) with offsets t row-major in [-2, 2]^2, per-axis bilinear
+// coefficient fields ay[e], ax[e] (e in [-3, 3]; nonzero only at e = f and
+// e = f + 1 for the pixel's relative floor f, with weights 1 - w and w):
+//
+//   phase A  G[q]   = sum_t src[q + t] @ W_t                  (q on the +-3 halo)
+//            acc[p] = acc0[p] + sum_e ay[ey] ax[ex] G[p + e]
+//   phase B  attn   = softmax(leaky_relu(acc) @ w1 + b1)      (128 -> 25)
+//   phase C  out[p] = (1/25) sum_d V_d[p] src[p + d],  d in [-5, 5]^2,
+//            V_d = sum_e ay[ey] ax[ex] attn_(d - e)
+//
+// Replaces hoig_tpu/ops/attn_pallas.py (Pallas, TPU): `_fwd_kernel`,
+// `_bwd_c_kernel`, `_bwd_a_gsrc_kernel` and `_bwd_a_dw_kernel`, one C entry
+// point each. The TPU kernels kept a row band of the frame with its halo in
+// VMEM (tens of MB) and walked the grid in order, carrying dW and g_attn in
+// revisited output blocks. A Hopper block has 227 KB of shared memory and
+// blocks run in no order, so each entry point here runs a few simple kernels
+// in sequence on the stream, with scratch the wrapper allocates:
+//
+//   * fwd: conv5_kernel writes G (B, H+6, W+6, 128) f32, an implicit-GEMM
+//     5x5 correlation (8x8 output pixels x 128 outputs per block, 32-channel
+//     slices of the 12x12 source window and of one offset's weights staged in
+//     shared memory, 4 x 8 sums per thread); fwd_pixel_kernel then gives a
+//     warp one pixel: the 4 nonzero coefficient terms of acc, the 128 -> 25
+//     logits against w1 in shared memory, the softmax by warp shuffles, the
+//     121 V_d (the 36 that can be nonzero are summed) and the output, lane =
+//     channel pair.
+//   * bwd_c: bwd_c_pixel_kernel writes V (B, H, W, 121) and g_attn (the 36
+//     channel dots <g_out[p], src[p + d]> a pixel needs, reduced by warp
+//     shuffles); bwd_c_gather_kernel forms the source gradient on the padded
+//     frame as a gather (warp = padded pixel: sum_d V_d[P - d] g[P - d]), and
+//     fold_kernel folds the edge margins onto the border pixels and divides
+//     by 25.
+//   * bwd_a_gsrc: dg_kernel writes dG[q] = sum_e (ay ax g_acc)[q - e] on the
+//     halo; conv5_kernel in its transposed form projects dG back through
+//     W_t^T onto the padded frame; fold_kernel folds the margins.
+//   * bwd_a_dw: dg_kernel, then dw_kernel: one block per (offset, 64-channel
+//     tile, slice of the pixels) sums src[m] (x) dG[m - t] over its slice
+//     into a partial, and dw_reduce_kernel adds the slices in order. No float
+//     atomics: every run gives the same bits.
+//
+// What bounds them on an H100 (at the attention's shapes, C = 128..512 over
+// 128^2..32^2 pixels, batch 4): the three 5x5 products (G, the gsrc
+// projection, dW) are 2 * 25 * C * 128 operations per padded pixel, far
+// above the card's operations-per-byte line, so all four entry points are
+// bound by arithmetic. Here those products run as FP32 fused multiply-adds
+// on the CUDA cores (a bf16 source is widened to f32 in shared memory),
+// register-blocked 4 x 8 with operands from shared memory: right first; a
+// tensor-core (wgmma) version is the next step. Everything else (the
+// coefficient terms, softmax, the 36-term combines, the folds) is a few
+// percent of the operations and reads each input about once from L2.
+//
+// Numerics. Built with -fmad=false: every elementwise step (the coefficient
+// products, the 4-term acc combine, the V build, the phase-C and bwd-c sums,
+// dG, the folds, the divisions by 25) rounds each product and each sum as
+// the plain PyTorch versions in hoig_torch/ops/attn_fused.py do, in the same
+// order, skipping only terms that are exactly zero; phase-C and bwd-c
+// products are rounded to the source dtype, as bf16 * bf16 is in JAX. The
+// channel reductions (G, the logits, the g_attn dots, the gsrc projection,
+// dW) use explicit fused multiply-adds in an order of their own, so the
+// results that depend on them agree with the plain versions to a tolerance.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kK2 = 25;      // attention offsets (5 x 5)
+constexpr int kF = 128;      // fc_0 hidden width
+constexpr int kHalo = 3;     // G is needed on the +-3 halo of the frame
+constexpr int kPad = 5;      // largest total shift per axis
+constexpr int kNS = 11;      // total shifts per axis
+constexpr int kNV = kNS * kNS;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPixPerBlock = 32;  // per-pixel kernels: 8 warps x 4 pixels
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// x rounded to T's precision (the product of two T values rounded in T)
+template <typename T> __device__ __forceinline__ float rnd(float x);
+template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
+template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
+
+// The two nonzero bilinear coefficients per axis of one pixel: a*0 on shift
+// i*, a*1 on shift i* + 1.
+struct Coef {
+  int iy, ix;
+  float ay0, ay1, ax0, ax1;
+};
+
+__device__ __forceinline__ Coef load_coef(const float* fy, const float* fx, const float* wy,
+                                          const float* wx, long long p) {
+  Coef k;
+  k.iy = static_cast<int>(fy[p]);
+  k.ix = static_cast<int>(fx[p]);
+  k.ay1 = wy[p];
+  k.ax1 = wx[p];
+  k.ay0 = __fsub_rn(1.f, k.ay1);
+  k.ax0 = __fsub_rn(1.f, k.ax1);
+  return k;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// V_d of one pixel into v[0..120] (d row-major over [-5, 5]^2), separably:
+// Vx[ty, dx] = sum_ex ax[ex] attn[ty, dx - ex], V[dy, dx] = sum_ey ay[ey]
+// Vx[dy - ey, dx], ascending e; the terms with a zero coefficient are left
+// out (they add exact zeros in the plain version).
+__device__ __forceinline__ void build_v(const float* at, const Coef& k, float* v, int lane) {
+  for (int d = lane; d < kNV; d += 32) {
+    const int dy = d / kNS - kPad;
+    const int dx = d % kNS - kPad;
+    float val = 0.f;
+#pragma unroll
+    for (int cy = 0; cy < 2; ++cy) {
+      const int ty = dy - (k.iy + cy);
+      if (ty < -2 || ty > 2) continue;
+      float vx = 0.f;
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx) {
+        const int tx = dx - (k.ix + cx);
+        if (tx < -2 || tx > 2) continue;
+        vx = __fadd_rn(vx, __fmul_rn(cx ? k.ax1 : k.ax0, at[(ty + 2) * 5 + tx + 2]));
+      }
+      val = __fadd_rn(val, __fmul_rn(cy ? k.ay1 : k.ay0, vx));
+    }
+    v[d] = val;
+  }
+}
+
+// ------------------------------------------------------------ 5x5 products
+//
+// out[b, oy, ox, n] = sum_{uy, ux in 0..4} sum_k X[b, oy + uy + off, ox + ux + off, k] * W(u, k, n)
+//
+// forward (G): X = src read edge-padded (index clamped), off = -5,
+//   W(u, k, n) = w0s[u, k, n] (k = channel, n = hidden unit);
+// transposed (gsrc projection): X = dG, zero outside its frame, off = -4,
+//   W(u, k, n) = w0s[24 - u, n, k] (k = hidden unit, n = channel).
+constexpr int kT = 8;             // output tile edge
+constexpr int kWin = kT + 4;      // input window edge
+constexpr int kKc = 32;           // reduction slice
+constexpr int kNt = 128;          // outputs per block
+
+template <typename TX, typename TW, bool kTransposed>
+__global__ void __launch_bounds__(kThreads)
+conv5_kernel(const TX* __restrict__ x, const TW* __restrict__ w0s, float* __restrict__ out,
+             int xh, int xw, int kdim, int oh, int ow, int ndim, int off) {
+  __shared__ float xs[kWin * kWin][kKc + 1];
+  __shared__ float ws[kKc][kNt + 1];
+  const int tiles_x = (ow + kT - 1) / kT;
+  const int oy0 = (blockIdx.x / tiles_x) * kT;
+  const int ox0 = (blockIdx.x % tiles_x) * kT;
+  const int n0 = blockIdx.y * kNt;
+  const long long b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tp = tid >> 4;  // pixels tp + 16 i of the 8x8 tile
+  const int tn = tid & 15;  // outputs tn + 16 j of the block's 128
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < kdim; k0 += kKc) {
+    __syncthreads();  // the previous slice's readers are done with xs
+    for (int i = tid; i < kWin * kWin * kKc; i += kThreads) {
+      const int q = i / kKc;
+      const int kk = i - q * kKc;
+      int y = oy0 + q / kWin + off;
+      int xx = ox0 + q % kWin + off;
+      const int k = k0 + kk;
+      float v = 0.f;
+      if (k < kdim) {
+        if (kTransposed) {
+          if (y >= 0 && y < xh && xx >= 0 && xx < xw) v = to_f32(x[((b * xh + y) * xw + xx) * kdim + k]);
+        } else {
+          y = clampi(y, 0, xh - 1);
+          xx = clampi(xx, 0, xw - 1);
+          v = to_f32(x[((b * xh + y) * xw + xx) * kdim + k]);
+        }
+      }
+      xs[q][kk] = v;
+    }
+    for (int u = 0; u < kK2; ++u) {
+      __syncthreads();  // xs is staged; the previous offset's readers are done with ws
+      for (int i = tid; i < kKc * kNt; i += kThreads) {
+        int kk, n;
+        float v = 0.f;
+        if (kTransposed) {
+          n = i / kKc;
+          kk = i - n * kKc;
+          if (n0 + n < ndim && k0 + kk < kdim) {
+            v = to_f32(w0s[((long long)(kK2 - 1 - u) * ndim + n0 + n) * kdim + k0 + kk]);
+          }
+        } else {
+          kk = i / kNt;
+          n = i - kk * kNt;
+          if (n0 + n < ndim && k0 + kk < kdim) {
+            v = to_f32(w0s[((long long)u * kdim + k0 + kk) * ndim + n0 + n]);
+          }
+        }
+        ws[kk][n] = v;
+      }
+      __syncthreads();
+      const int uy = u / 5;
+      const int ux = u % 5;
+#pragma unroll 4
+      for (int kk = 0; kk < kKc; ++kk) {
+        float a[4], bv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int pos = tp + 16 * i;
+          a[i] = xs[(pos / kT + uy) * kWin + pos % kT + ux][kk];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bv[j] = ws[kk][tn + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(a[i], bv[j], acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int pos = tp + 16 * i;
+    const int oy = oy0 + pos / kT;
+    const int ox = ox0 + pos % kT;
+    if (oy >= oh || ox >= ow) continue;
+    float* row = out + ((b * oh + oy) * ow + ox) * ndim;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tn + 16 * j;
+      if (n < ndim) row[n] = acc[i][j];
+    }
+  }
+}
+
+template <typename TX, typename TW, bool kTransposed>
+cudaError_t launch_conv5(const TX* x, const TW* w0s, float* out, int b, int xh, int xw, int kdim,
+                         int oh, int ow, int ndim, int off, cudaStream_t s) {
+  const dim3 grid(((oh + kT - 1) / kT) * ((ow + kT - 1) / kT), (ndim + kNt - 1) / kNt, b);
+  conv5_kernel<TX, TW, kTransposed><<<grid, kThreads, 0, s>>>(x, w0s, out, xh, xw, kdim, oh, ow,
+                                                              ndim, off);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------- fwd
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fwd_pixel_kernel(const T* __restrict__ src, const float* __restrict__ acc0,
+                 const float* __restrict__ w1, const float* __restrict__ b1,
+                 const float* __restrict__ fy, const float* __restrict__ fx,
+                 const float* __restrict__ wy, const float* __restrict__ wx,
+                 const float* __restrict__ g, T* __restrict__ out, float* __restrict__ acc_out,
+                 float* __restrict__ attn_out, long long n_pix, int h, int w, int c) {
+  __shared__ float w1s[kF * kK2];
+  __shared__ float b1s[kK2];
+  __shared__ float hdn_s[kWarps][kF];
+  __shared__ float attn_s[kWarps][kK2];
+  __shared__ float v_s[kWarps][kNV];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kF * kK2; i += kThreads) w1s[i] = w1[i];
+  if (tid < kK2) b1s[tid] = b1[tid];
+  __syncthreads();
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int hg = h + 2 * kHalo;
+  const int wg = w + 2 * kHalo;
+  const long long first = (long long)blockIdx.x * kPixPerBlock;
+  const long long last = min(n_pix, first + kPixPerBlock);
+  for (long long p = first + warp; p < last; p += kWarps) {
+    const int x = static_cast<int>(p % w);
+    const int y = static_cast<int>((p / w) % h);
+    const long long bb = p / ((long long)h * w);
+    const Coef k = load_coef(fy, fx, wy, wx, p);
+
+    // phase A: acc = acc0 + the 4 nonzero coefficient terms, ascending (ey, ex)
+    float4 a4 = *reinterpret_cast<const float4*>(acc0 + p * kF + 4 * lane);
+#pragma unroll
+    for (int cy = 0; cy < 2; ++cy) {
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx) {
+        const float cf = __fmul_rn(cy ? k.ay1 : k.ay0, cx ? k.ax1 : k.ax0);
+        const float4 gv = *reinterpret_cast<const float4*>(
+            g + ((bb * hg + y + kHalo + k.iy + cy) * wg + x + kHalo + k.ix + cx) * kF + 4 * lane);
+        a4.x = __fadd_rn(a4.x, __fmul_rn(cf, gv.x));
+        a4.y = __fadd_rn(a4.y, __fmul_rn(cf, gv.y));
+        a4.z = __fadd_rn(a4.z, __fmul_rn(cf, gv.z));
+        a4.w = __fadd_rn(a4.w, __fmul_rn(cf, gv.w));
+      }
+    }
+    *reinterpret_cast<float4*>(acc_out + p * kF + 4 * lane) = a4;
+    float* hd = hdn_s[warp];
+    hd[4 * lane + 0] = a4.x >= 0.f ? a4.x : __fmul_rn(0.01f, a4.x);
+    hd[4 * lane + 1] = a4.y >= 0.f ? a4.y : __fmul_rn(0.01f, a4.y);
+    hd[4 * lane + 2] = a4.z >= 0.f ? a4.z : __fmul_rn(0.01f, a4.z);
+    hd[4 * lane + 3] = a4.w >= 0.f ? a4.w : __fmul_rn(0.01f, a4.w);
+    __syncwarp();
+
+    // phase B: lane k < 25 owns logit k; softmax over the warp
+    float logit = __int_as_float(0xff800000);  // -inf
+    if (lane < kK2) {
+      float s = 0.f;
+      for (int f = 0; f < kF; ++f) s = __fmaf_rn(hd[f], w1s[f * kK2 + lane], s);
+      logit = __fadd_rn(s, b1s[lane]);
+    }
+    const float m = warp_max(logit);
+    const float e = lane < kK2 ? expf(__fsub_rn(logit, m)) : 0.f;
+    const float sum = warp_sum(e);
+    if (lane < kK2) {
+      const float at = __fdiv_rn(e, sum);
+      attn_out[p * kK2 + lane] = at;
+      attn_s[warp][lane] = at;
+    }
+    __syncwarp();
+
+    // phase C: out = (1/25) sum_d V_d src[p + d] over the 6x6 box of d where
+    // V_d can be nonzero, ascending; products rounded to T, f32 sums
+    float* v = v_s[warp];
+    build_v(attn_s[warp], k, v, lane);
+    __syncwarp();
+    const int dy0 = k.iy - 2;
+    const int dx0 = k.ix - 2;
+    for (int c0 = 0; c0 < c; c0 += 64) {
+      const int ch = c0 + 2 * lane;
+      if (ch >= c) break;
+      float o0 = 0.f, o1 = 0.f;
+      for (int dy = dy0; dy < dy0 + 6; ++dy) {
+        const int sy = clampi(y + dy, 0, h - 1);
+        for (int dx = dx0; dx < dx0 + 6; ++dx) {
+          const int sx = clampi(x + dx, 0, w - 1);
+          const float vd = rnd<T>(v[(dy + kPad) * kNS + dx + kPad]);
+          const float2 s = load_pair(src + ((bb * h + sy) * w + sx) * c + ch);
+          o0 = __fadd_rn(o0, rnd<T>(__fmul_rn(vd, s.x)));
+          o1 = __fadd_rn(o1, rnd<T>(__fmul_rn(vd, s.y)));
+        }
+      }
+      store_pair(out + p * c + ch, __fdiv_rn(o0, 25.f), __fdiv_rn(o1, 25.f));
+    }
+    __syncwarp();  // v_s, hdn_s and attn_s are reused by the warp's next pixel
+  }
+}
+
+// ----------------------------------------------------------------- bwd_c
+
+// V of every pixel into v_out (B, H, W, 121), and g_attn.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_c_pixel_kernel(const T* __restrict__ src, const float* __restrict__ fy,
+                   const float* __restrict__ fx, const float* __restrict__ wy,
+                   const float* __restrict__ wx, const float* __restrict__ attn,
+                   const T* __restrict__ gout, float* __restrict__ v_out,
+                   float* __restrict__ gattn, long long n_pix, int h, int w, int c) {
+  __shared__ float attn_s[kWarps][kK2];
+  __shared__ float sd_s[kWarps][36];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long first = (long long)blockIdx.x * kPixPerBlock;
+  const long long last = min(n_pix, first + kPixPerBlock);
+  for (long long p = first + warp; p < last; p += kWarps) {
+    const int x = static_cast<int>(p % w);
+    const int y = static_cast<int>((p / w) % h);
+    const long long bb = p / ((long long)h * w);
+    const Coef k = load_coef(fy, fx, wy, wx, p);
+    if (lane < kK2) attn_s[warp][lane] = attn[p * kK2 + lane];
+    __syncwarp();
+    build_v(attn_s[warp], k, v_out + p * kNV, lane);
+
+    // sdot[d] = <g_out[p], src[p + d]> over the 6x6 box of d that g_attn reads;
+    // products rounded to T, each lane's channels in ascending order, then a
+    // fixed shuffle tree
+    const int dy0 = k.iy - 2;
+    const int dx0 = k.ix - 2;
+    const T* gp = gout + p * c;
+    for (int j = 0; j < 36; ++j) {
+      const int sy = clampi(y + dy0 + j / 6, 0, h - 1);
+      const int sx = clampi(x + dx0 + j % 6, 0, w - 1);
+      const T* sp = src + ((bb * h + sy) * w + sx) * c;
+      float part = 0.f;
+      for (int ch = 2 * lane; ch < c; ch += 64) {
+        const float2 gv = load_pair(gp + ch);
+        const float2 sv = load_pair(sp + ch);
+        part = __fadd_rn(part, rnd<T>(__fmul_rn(gv.x, sv.x)));
+        part = __fadd_rn(part, rnd<T>(__fmul_rn(gv.y, sv.y)));
+      }
+      part = warp_sum(part);
+      if (lane == 0) sd_s[warp][j] = part;
+    }
+    __syncwarp();
+    // g_attn[t] = (1/25) sum_ey ay[ey] sum_ex ax[ex] sdot[t + e], ascending e
+    if (lane < kK2) {
+      const int ty = lane / 5 - 2;
+      const int tx = lane % 5 - 2;
+      float val = 0.f;
+#pragma unroll
+      for (int cy = 0; cy < 2; ++cy) {
+        float sx = 0.f;
+#pragma unroll
+        for (int cx = 0; cx < 2; ++cx) {
+          sx = __fadd_rn(sx, __fmul_rn(cx ? k.ax1 : k.ax0, sd_s[warp][(ty + cy + 2) * 6 + tx + cx + 2]));
+        }
+        val = __fadd_rn(val, __fmul_rn(cy ? k.ay1 : k.ay0, sx));
+      }
+      gattn[p * kK2 + lane] = __fdiv_rn(val, 25.f);
+    }
+    __syncwarp();
+  }
+}
+
+// Source gradient on the padded frame (B, H+10, W+10, C):
+// gpad[P] = sum_d T(T(V_d[P - d]) * g[P - d]), ascending d, as a gather.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_c_gather_kernel(const T* __restrict__ gout, const float* __restrict__ v,
+                    float* __restrict__ gpad, long long n_pad, int h, int w, int c) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long pp = (long long)blockIdx.x * kWarps + warp;
+  if (pp >= n_pad) return;
+  const int hp = h + 2 * kPad;
+  const int wp = w + 2 * kPad;
+  const int px = static_cast<int>(pp % wp);
+  const int py = static_cast<int>((pp / wp) % hp);
+  const long long bb = pp / ((long long)hp * wp);
+  for (int c0 = 0; c0 < c; c0 += 64) {
+    const int ch = c0 + 2 * lane;
+    float a0 = 0.f, a1 = 0.f;
+    for (int dyi = 0; dyi < kNS; ++dyi) {
+      const int qy = py - dyi;
+      if (qy < 0 || qy >= h) continue;
+      for (int dxi = 0; dxi < kNS; ++dxi) {
+        const int qx = px - dxi;
+        if (qx < 0 || qx >= w) continue;
+        const long long q = (bb * h + qy) * w + qx;
+        const float vd = rnd<T>(v[q * kNV + dyi * kNS + dxi]);
+        if (vd == 0.f || ch >= c) continue;
+        const float2 gv = load_pair(gout + q * c + ch);
+        a0 = __fadd_rn(a0, rnd<T>(__fmul_rn(vd, gv.x)));
+        a1 = __fadd_rn(a1, rnd<T>(__fmul_rn(vd, gv.y)));
+      }
+    }
+    if (ch < c) store_pair(gpad + pp * c + ch, a0, a1);
+  }
+}
+
+// Fold the edge-padded frame's gradient onto the image (the replicate-pad
+// backward): border pixels collect their margin's entries, the columns of a
+// row in ascending order first, then the rows in ascending order.
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(const float* __restrict__ gpad, float* __restrict__ out, long long n, int h, int w,
+            int c, int divide25) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int ch = static_cast<int>(i % c);
+  const long long pix = i / c;
+  const int x = static_cast<int>(pix % w);
+  const int y = static_cast<int>((pix / w) % h);
+  const long long bb = pix / ((long long)h * w);
+  const int hp = h + 2 * kPad;
+  const int wp = w + 2 * kPad;
+  const int r_lo = y == 0 ? 0 : y + kPad;
+  const int r_hi = y == h - 1 ? h + 2 * kPad - 1 : y + kPad;
+  const int c_lo = x == 0 ? 0 : x + kPad;
+  const int c_hi = x == w - 1 ? w + 2 * kPad - 1 : x + kPad;
+  float tot = 0.f;
+  for (int r = r_lo; r <= r_hi; ++r) {
+    float row = 0.f;
+    for (int cc = c_lo; cc <= c_hi; ++cc) row = __fadd_rn(row, gpad[((bb * hp + r) * wp + cc) * c + ch]);
+    tot = __fadd_rn(tot, row);
+  }
+  out[i] = divide25 ? __fdiv_rn(tot, 25.f) : tot;
+}
+
+cudaError_t launch_fold(const float* gpad, float* out, int b, int h, int w, int c, int divide25,
+                        cudaStream_t s) {
+  const long long n = (long long)b * h * w * c;
+  fold_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(gpad, out, n, h, w, c,
+                                                                             divide25);
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------------------- bwd_a
+
+// dG[q] = sum_e (ay[ey] ax[ex] g_acc)[q - e] on the halo frame (B, H+6, W+6,
+// 128), ascending e; a block per halo pixel, a thread per hidden unit.
+__global__ void __launch_bounds__(kF)
+dg_kernel(const float* __restrict__ gacc, const float* __restrict__ fy,
+          const float* __restrict__ fx, const float* __restrict__ wy,
+          const float* __restrict__ wx, float* __restrict__ dg, int h, int w) {
+  const int hg = h + 2 * kHalo;
+  const int wg = w + 2 * kHalo;
+  const long long q = blockIdx.x;
+  const int gx = static_cast<int>(q % wg);
+  const int gy = static_cast<int>((q / wg) % hg);
+  const long long bb = q / ((long long)hg * wg);
+  const int f = threadIdx.x;
+  float tot = 0.f;
+  for (int eyi = 0; eyi < 7; ++eyi) {
+    const int y = gy - eyi;
+    if (y < 0 || y >= h) continue;
+    for (int exi = 0; exi < 7; ++exi) {
+      const int x = gx - exi;
+      if (x < 0 || x >= w) continue;
+      const long long p = (bb * h + y) * w + x;
+      const Coef k = load_coef(fy, fx, wy, wx, p);
+      const int cy = eyi - kHalo - k.iy;
+      const int cx = exi - kHalo - k.ix;
+      if (cy < 0 || cy > 1 || cx < 0 || cx > 1) continue;
+      const float cf = __fmul_rn(cy ? k.ay1 : k.ay0, cx ? k.ax1 : k.ax0);
+      tot = __fadd_rn(tot, __fmul_rn(cf, gacc[p * kF + f]));
+    }
+  }
+  dg[q * kF + f] = tot;
+}
+
+cudaError_t launch_dg(const float* gacc, const float* fy, const float* fx, const float* wy,
+                      const float* wx, float* dg, int b, int h, int w, cudaStream_t s) {
+  const long long n = (long long)b * (h + 2 * kHalo) * (w + 2 * kHalo);
+  dg_kernel<<<(unsigned)n, kF, 0, s>>>(gacc, fy, fx, wy, wx, dg, h, w);
+  return cudaGetLastError();
+}
+
+// partial[s, t, c, f] = sum over padded pixels m of slice s of src_pad[m, c] * dG[m - 2 - t, f]
+// (array coordinates; dG zero outside its frame). Block: offset t, 64
+// channels, one slice; thread: 4 channels x 8 hidden units.
+constexpr int kCt = 64;  // channels per dW block
+constexpr int kMc = 32;  // pixels per staged slice
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dw_kernel(const T* __restrict__ src, const float* __restrict__ dg, float* __restrict__ part,
+          int h, int w, int c, long long n_pos, long long per_slice) {
+  __shared__ float ss[kMc][kCt + 1];
+  __shared__ float ds[kMc][kF + 1];
+  __shared__ long long src_off[kMc];
+  __shared__ long long dg_off[kMc];
+  const int t = blockIdx.x;
+  const int ty = t / 5 - 2;
+  const int tx = t % 5 - 2;
+  const int c0 = blockIdx.y * kCt;
+  const long long m_begin = blockIdx.z * per_slice;
+  const long long m_end = min(n_pos, m_begin + per_slice);
+  const int hp = h + 2 * kPad;
+  const int wp = w + 2 * kPad;
+  const int hg = h + 2 * kHalo;
+  const int wg = w + 2 * kHalo;
+  const int tid = threadIdx.x;
+  const int tc = tid >> 4;
+  const int tf = tid & 15;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (long long m0 = m_begin; m0 < m_end; m0 += kMc) {
+    __syncthreads();  // the previous slice's readers are done
+    if (tid < kMc) {
+      // element offsets of the slice's source pixel and of dG[m - 2 - t] (-1: zero)
+      const long long m = m0 + tid;
+      long long so = -1, go = -1;
+      if (m < m_end) {
+        const int mx = static_cast<int>(m % wp);
+        const int my = static_cast<int>((m / wp) % hp);
+        const long long bb = m / ((long long)hp * wp);
+        so = ((bb * h + clampi(my - kPad, 0, h - 1)) * w + clampi(mx - kPad, 0, w - 1)) * c;
+        const int gy = my - 2 - ty;
+        const int gx = mx - 2 - tx;
+        if (gy >= 0 && gy < hg && gx >= 0 && gx < wg) go = ((bb * hg + gy) * wg + gx) * kF;
+      }
+      src_off[tid] = so;
+      dg_off[tid] = go;
+    }
+    __syncthreads();
+    for (int i = tid; i < kMc * kCt; i += kThreads) {
+      const int mm = i / kCt;
+      const int cc = i - mm * kCt;
+      const long long so = src_off[mm];
+      ss[mm][cc] = (so >= 0 && c0 + cc < c) ? to_f32(src[so + c0 + cc]) : 0.f;
+    }
+    for (int i = tid; i < kMc * kF; i += kThreads) {
+      const int mm = i / kF;
+      const int f = i - mm * kF;
+      const long long go = dg_off[mm];
+      ds[mm][f] = go >= 0 ? dg[go + f] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kMc; ++kk) {
+      float a[4], bv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ss[kk][tc + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bv[j] = ds[kk][tf + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(a[i], bv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ch = c0 + tc + 16 * i;
+    if (ch >= c) continue;
+    float* row = part + (((long long)blockIdx.z * kK2 + t) * c + ch) * kF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) row[tf + 16 * j] = acc[i][j];
+  }
+}
+
+// dw[i] = sum over slices s, ascending, of part[s, i]
+__global__ void __launch_bounds__(kThreads)
+dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw, long long n, int slices) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float tot = part[i];
+  for (int s = 1; s < slices; ++s) tot = __fadd_rn(tot, part[s * n + i]);
+  dw[i] = tot;
+}
+
+bool bad_dims(int b, int h, int w, int c) {
+  return b < 1 || h < 1 || w < 1 || c < 2 || c % 2 != 0 || b > 65535;
+}
+
+#define HOIG_TRY(...)                       \
+  do {                                      \
+    const cudaError_t err_ = (__VA_ARGS__); \
+    if (err_ != cudaSuccess) return err_;   \
+  } while (0)
+
+template <typename T>
+int fwd(const void* src, const void* acc0, const void* w0s, const void* w1, const void* b1,
+        const void* fy, const void* fx, const void* wy, const void* wx, void* out, void* acc,
+        void* attn, void* g, int b, int h, int w, int c, cudaStream_t s) {
+  const T* src_ = static_cast<const T*>(src);
+  float* g_ = static_cast<float*>(g);
+  HOIG_TRY(launch_conv5<T, T, false>(src_, static_cast<const T*>(w0s), g_, b, h, w, c,
+                                     h + 2 * kHalo, w + 2 * kHalo, kF, -kPad, s));
+  const long long n_pix = (long long)b * h * w;
+  fwd_pixel_kernel<T><<<(unsigned)((n_pix + kPixPerBlock - 1) / kPixPerBlock), kThreads, 0, s>>>(
+      src_, static_cast<const float*>(acc0), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(fy), static_cast<const float*>(fx),
+      static_cast<const float*>(wy), static_cast<const float*>(wx), g_, static_cast<T*>(out),
+      static_cast<float*>(acc), static_cast<float*>(attn), n_pix, h, w, c);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int bwd_c(const void* src, const void* fy, const void* fx, const void* wy, const void* wx,
+          const void* attn, const void* gout, void* gsrc, void* gattn, void* v, void* gpad, int b,
+          int h, int w, int c, cudaStream_t s) {
+  const long long n_pix = (long long)b * h * w;
+  bwd_c_pixel_kernel<T><<<(unsigned)((n_pix + kPixPerBlock - 1) / kPixPerBlock), kThreads, 0, s>>>(
+      static_cast<const T*>(src), static_cast<const float*>(fy), static_cast<const float*>(fx),
+      static_cast<const float*>(wy), static_cast<const float*>(wx),
+      static_cast<const float*>(attn), static_cast<const T*>(gout), static_cast<float*>(v),
+      static_cast<float*>(gattn), n_pix, h, w, c);
+  HOIG_TRY(cudaGetLastError());
+  const long long n_pad = (long long)b * (h + 2 * kPad) * (w + 2 * kPad);
+  bwd_c_gather_kernel<T><<<(unsigned)((n_pad + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+      static_cast<const T*>(gout), static_cast<const float*>(v), static_cast<float*>(gpad), n_pad,
+      h, w, c);
+  HOIG_TRY(cudaGetLastError());
+  return launch_fold(static_cast<const float*>(gpad), static_cast<float*>(gsrc), b, h, w, c, 1, s);
+}
+
+template <typename T>
+int bwd_a_gsrc(const void* gacc, const void* fy, const void* fx, const void* wy, const void* wx,
+               const void* w0s, void* gsrc, void* dg, void* gpad, int b, int h, int w, int c,
+               cudaStream_t s) {
+  float* dg_ = static_cast<float*>(dg);
+  float* gpad_ = static_cast<float*>(gpad);
+  HOIG_TRY(launch_dg(static_cast<const float*>(gacc), static_cast<const float*>(fy),
+                     static_cast<const float*>(fx), static_cast<const float*>(wy),
+                     static_cast<const float*>(wx), dg_, b, h, w, s));
+  HOIG_TRY(launch_conv5<float, T, true>(dg_, static_cast<const T*>(w0s), gpad_, b, h + 2 * kHalo,
+                                        w + 2 * kHalo, kF, h + 2 * kPad, w + 2 * kPad, c, -4, s));
+  return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, 0, s);
+}
+
+template <typename T>
+int bwd_a_dw(const void* src, const void* gacc, const void* fy, const void* fx, const void* wy,
+             const void* wx, void* dw, void* dg, void* part, int b, int h, int w, int c,
+             int slices, cudaStream_t s) {
+  float* dg_ = static_cast<float*>(dg);
+  float* part_ = static_cast<float*>(part);
+  HOIG_TRY(launch_dg(static_cast<const float*>(gacc), static_cast<const float*>(fy),
+                     static_cast<const float*>(fx), static_cast<const float*>(wy),
+                     static_cast<const float*>(wx), dg_, b, h, w, s));
+  const long long n_pos = (long long)b * (h + 2 * kPad) * (w + 2 * kPad);
+  const long long per_slice = ((n_pos + slices - 1) / slices + kMc - 1) / kMc * kMc;
+  const dim3 grid(kK2, (c + kCt - 1) / kCt, slices);
+  dw_kernel<T><<<grid, kThreads, 0, s>>>(static_cast<const T*>(src), dg_, part_, h, w, c, n_pos,
+                                         per_slice);
+  HOIG_TRY(cudaGetLastError());
+  const long long n = (long long)kK2 * c * kF;
+  dw_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      part_, static_cast<float*>(dw), n, slices);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int hoig_attn_fused_fwd(const void* src, const void* acc0, const void* w0s,
+                                   const void* w1, const void* b1, const void* fy, const void* fx,
+                                   const void* wy, const void* wx, void* out, void* acc,
+                                   void* attn, void* g, int b, int h, int w, int c, int is_bf16,
+                                   void* stream) {
+  if (bad_dims(b, h, w, c)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return fwd<__nv_bfloat16>(src, acc0, w0s, w1, b1, fy, fx, wy, wx, out, acc, attn, g, b, h, w,
+                              c, s);
+  }
+  return fwd<float>(src, acc0, w0s, w1, b1, fy, fx, wy, wx, out, acc, attn, g, b, h, w, c, s);
+}
+
+extern "C" int hoig_attn_fused_bwd_c(const void* src, const void* fy, const void* fx,
+                                     const void* wy, const void* wx, const void* attn,
+                                     const void* gout, void* gsrc, void* gattn, void* v,
+                                     void* gpad, int b, int h, int w, int c, int is_bf16,
+                                     void* stream) {
+  if (bad_dims(b, h, w, c)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return bwd_c<__nv_bfloat16>(src, fy, fx, wy, wx, attn, gout, gsrc, gattn, v, gpad, b, h, w, c,
+                                s);
+  }
+  return bwd_c<float>(src, fy, fx, wy, wx, attn, gout, gsrc, gattn, v, gpad, b, h, w, c, s);
+}
+
+extern "C" int hoig_attn_fused_bwd_a_gsrc(const void* gacc, const void* fy, const void* fx,
+                                          const void* wy, const void* wx, const void* w0s,
+                                          void* gsrc, void* dg, void* gpad, int b, int h, int w,
+                                          int c, int is_bf16, void* stream) {
+  if (bad_dims(b, h, w, c)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return bwd_a_gsrc<__nv_bfloat16>(gacc, fy, fx, wy, wx, w0s, gsrc, dg, gpad, b, h, w, c, s);
+  }
+  return bwd_a_gsrc<float>(gacc, fy, fx, wy, wx, w0s, gsrc, dg, gpad, b, h, w, c, s);
+}
+
+extern "C" int hoig_attn_fused_bwd_a_dw(const void* src, const void* gacc, const void* fy,
+                                        const void* fx, const void* wy, const void* wx, void* dw,
+                                        void* dg, void* part, int b, int h, int w, int c,
+                                        int slices, int is_bf16, void* stream) {
+  if (bad_dims(b, h, w, c) || slices < 1 || slices > 65535) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return bwd_a_dw<__nv_bfloat16>(src, gacc, fy, fx, wy, wx, dw, dg, part, b, h, w, c, slices, s);
+  }
+  return bwd_a_dw<float>(src, gacc, fy, fx, wy, wx, dw, dg, part, b, h, w, c, slices, s);
+}
+
+extern "C" const char* hoig_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

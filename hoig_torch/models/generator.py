@@ -40,6 +40,7 @@ from hoig_torch.models.layers import (
     conv_in_relu,
     upconv_in_relu,
 )
+from hoig_torch.ops.attn_fused import edge_pad, flow_attention_fused, flow_fields
 from hoig_torch.ops.grid_sample import _resize_axis_linear_ac, grid_sample_nhwc
 from hoig_torch.ops.local_combine import local_combine
 
@@ -58,14 +59,6 @@ def _to_net(x_nhwc: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
-
-
-def _edge_pad_nhwc(x: torch.Tensor, p: int) -> torch.Tensor:
-    """Replicate-pad the two spatial axes of an NHWC tensor by p."""
-    h, w = x.shape[1], x.shape[2]
-    rows = torch.arange(-p, h + p, device=x.device).clamp(0, h - 1)
-    cols = torch.arange(-p, w + p, device=x.device).clamp(0, w - 1)
-    return x.index_select(1, rows).index_select(2, cols)
 
 
 def _conv_nhwc(x: torch.Tensor, w_oihw: torch.Tensor) -> torch.Tensor:
@@ -87,12 +80,15 @@ def _identity_grid_ij(h: int, dtype, device) -> torch.Tensor:
 class ExtractorAttn(nn.Module):
     """Flow-guided k x k local attention (reference extract_attn.py).
 
-    Two engines with identical parameters: "shift" (bf16 pick) writes every
+    Three engines with identical parameters: "shift" (bf16 pick) writes every
     bilinear corner as a bounded integer shift and evaluates both
     weighted-shift sums with the `local_combine` kernel; "gather" (f32 pick)
-    fetches the (k+1)^2 shared corners with row gathers. The flow is the
-    reference's normalized delta read in pixels, bounded so that
-    floor(flow) lies in [-3, 2]; the shift engine is exact there.
+    fetches the (k+1)^2 shared corners with row gathers; "pallas" (the JAX
+    package's name for it, opt-in) runs the whole source half, softmax and
+    weighted mean in the fused kernels of `ops/attn_fused.py` (k = 5 only).
+    The flow is the reference's normalized delta read in pixels, bounded so
+    that floor(flow) lies in [-3, 2]; the shift and fused engines are exact
+    there.
     """
 
     _FLOOR_LO = -3
@@ -101,8 +97,8 @@ class ExtractorAttn(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 5, corner_engine: str = "gather",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if corner_engine not in ("shift", "gather"):
-            raise ValueError(f"unknown corner engine {corner_engine!r} (shift | gather)")
+        if corner_engine not in ("shift", "gather", "pallas"):
+            raise ValueError(f"unknown corner engine {corner_engine!r} (shift | gather | pallas)")
         k = kernel_size
         self.kernel_size = k
         self.corner_engine = corner_engine
@@ -122,6 +118,11 @@ class ExtractorAttn(nn.Module):
         cd = self.compute_dtype
         fc0, fc1 = self.fully_connect_layer[0], self.fully_connect_layer[2]
         w0c = fc0.weight.to(cd)  # (128, 2C, k, k)
+        # target half of fc_0: replicate-pad VALID correlation
+        tpad = edge_pad(target.to(cd), r)
+        acc = _conv_nhwc(tpad, w0c[:, :c]) + fc0.bias.to(cd)
+        if self.corner_engine == "pallas":
+            return self._pallas_engine(source, acc, w0c, flow)
 
         f32 = torch.float32
         dev = source.device
@@ -135,10 +136,6 @@ class ExtractorAttn(nn.Module):
         wx[0] = 1.0 - wx[1]
         wy[0] = 1.0 - wy[1]
         x0, y0 = x0f.long(), y0f.long()
-
-        # target half of fc_0: replicate-pad VALID correlation
-        tpad = _edge_pad_nhwc(target.to(cd), r)
-        acc = _conv_nhwc(tpad, w0c[:, :c]) + fc0.bias.to(cd)
         w1 = fc1.weight.reshape(k * k, 128).t().to(cd)
         b1 = fc1.bias.to(cd)
         if self.corner_engine == "shift":
@@ -171,7 +168,7 @@ class ExtractorAttn(nn.Module):
 
         # source half of fc_0: the coefficient fields do not depend on the
         # attention offset, so it is one correlation G plus a 49-shift combine
-        src_pad = _edge_pad_nhwc(src_c, pad)
+        src_pad = edge_pad(src_c, pad)
         halo = hi + 1
         g = _conv_nhwc(src_pad, w0c[:, c:])  # (B, h + 2 halo, w + 2 halo, 128)
         axy = (ay[..., :, None] * ax[..., None, :]).reshape(b, h, w, n_e * n_e)
@@ -191,6 +188,23 @@ class ExtractorAttn(nn.Module):
             v = term if v is None else v + term
         out = local_combine(src_pad, v.reshape(b, h, w, n_d * n_d).contiguous(), pad)
         return (out.to(cd) / (k * k)).to(source.dtype)
+
+    def _pallas_engine(self, source, acc, w0c, flow):
+        """The fused kernels: fc_0's source half as (25, C, 128) offset-major
+        slices of the same weight, acc0 and fc_1 in f32, the output cast to
+        the source's dtype."""
+        k = self.kernel_size
+        if k != 5:
+            raise NotImplementedError("the pallas corner engine requires kernel_size 5")
+        c = source.shape[3]
+        cd = self.compute_dtype
+        fc1 = self.fully_connect_layer[2]
+        w0s = w0c[:, c:].permute(2, 3, 1, 0).reshape(k * k, c, 128).contiguous()
+        w1 = fc1.weight.reshape(k * k, 128).t().float().contiguous()
+        b1 = fc1.bias.float()[None]
+        out = flow_attention_fused(source.to(cd).contiguous(), acc.float().contiguous(), w0s, w1,
+                                   b1, *flow_fields(flow))
+        return out.to(source.dtype)
 
     def _gather_engine(self, source, acc, w0c, w1, b1, wy, wx, x0, y0):
         k = self.kernel_size

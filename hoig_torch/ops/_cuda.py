@@ -36,6 +36,7 @@ SOURCES = {
     "local_combine": ("local_combine.cu", ["-fmad=false"]),
     "rasterizer": ("rasterizer.cu", ["-fmad=false"]),
     "table_gather": ("table_gather.cu", []),
+    "attn_fused": ("attn_fused.cu", ["-fmad=false"]),
 }
 
 _LAUNCHES: collections.Counter = collections.Counter()
@@ -126,11 +127,12 @@ def kernel(name: str, symbol: str, argtypes: list):
     return fn
 
 
-def check(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error (refused or failed launch)."""
+def check(library: str, err: int, name: str | None = None) -> None:
+    """Raise if a launch of library `library` returned a CUDA error (refused
+    or failed launch); `name` is the kernel's, when it is not the library's."""
     if err != 0:
-        msg = _library(name).hoig_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+        msg = _library(library).hoig_error_string(err).decode()
+        raise RuntimeError(f"{name or library} kernel launch failed: CUDA error {err} ({msg})")
 
 
 def stream_ptr() -> int:

@@ -97,7 +97,7 @@ def _launch(symbol: str, count_as: str, in0, in1, out, dims, radius: int) -> Non
     fn = _cuda.kernel("local_combine", symbol, _ARGTYPES)
     err = fn(in0.data_ptr(), in1.data_ptr(), out.data_ptr(), b, h, w, c, d_cols, radius,
              int(in0.dtype == torch.bfloat16), _cuda.stream_ptr())
-    _cuda.check(count_as, err)
+    _cuda.check("local_combine", err, count_as)
     _cuda.count_launch(count_as)
 
 

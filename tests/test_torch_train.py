@@ -5,6 +5,7 @@ conv_dim 8, repeat 2, batch 2, f32, shift engine on both sides, weights from
 numpy seeds carried across with hoig_torch.models.convert, JAX at matmul
 precision "highest", the JAX-built tables fed to both sides."""
 
+import copy
 import dataclasses
 import os
 
@@ -637,21 +638,70 @@ def test_eval_metrics_share_the_step_loss_graph(setup):
         np.testing.assert_allclose(float(m0[k]), float(m_step[k]), rtol=1e-5, err_msg=k)
 
 
+def test_fused_engine_step_matches_shift_engine(setup):
+    """One step with the fused attention engine (corner_engine "pallas")
+    against the same step with the shift engine, which the JAX comparison
+    above holds: same weights and batch; loss scalars rtol 1e-4, and the G
+    and D gradients leaf by leaf within the bounds of
+    test_step_metrics_and_gradients_match_jax."""
+    vgg, _, mano_params, ccfg, tcfg = setup["fn_args"]
+    # textured objects, as in `both`: untextured ones leave the object
+    # branch's gradients ill-conditioned
+    tables_np = copy.deepcopy(setup["env"]["tables_np"])
+    tables_np.obj_tex = (np.random.RandomState(5).rand(*tables_np.obj_tex.shape) * 2 - 1).astype(
+        np.float32)
+    tables = tables_np.as_torch("cpu")
+    runs = []
+    for cfg in (tcfg, dataclasses.replace(tcfg, corner_engine="pallas")):
+        state, metrics = make_train_step(vgg, tables, mano_params, ccfg, cfg)(
+            setup["fresh"](cfg), setup["batch"], True)
+        runs.append((metrics, state))
+    (m_shift, s_shift), (m_fused, s_fused) = runs
+    assert sorted(m_fused) == sorted(m_shift)
+    for k, ref in m_shift.items():
+        np.testing.assert_allclose(float(m_fused[k]), float(ref), rtol=1e-4, atol=1e-5, err_msg=k)
+    for net, rel_tree in (("g", 1e-2), ("d", 1e-6)):
+        ref = {n: p.grad for n, p in getattr(s_shift, net).named_parameters()}
+        tree_max = max(float(g.abs().max()) for g in ref.values())
+        for n, p in getattr(s_fused, net).named_parameters():
+            err = float((p.grad - ref[n]).abs().max())
+            scale = float(ref[n].abs().max())
+            msg = f"{net} {n}: {err} vs leaf max {scale}, tree max {tree_max}"
+            assert err <= 2e-4 * scale + rel_tree * tree_max, msg
+            assert err <= 0.15 * scale + 1e-6 * tree_max, msg
+
+
 # ---------------------------------------------------------------- (e) remat
 
 
-@pytest.mark.parametrize("rb,ra", [(True, True), (False, True), (False, False)])
-def test_remat_does_not_change_gradients(setup, rb, ra):
+@pytest.mark.parametrize("rb,ra,engine", [(True, True, "shift"), (False, True, "shift"),
+                                           (False, False, "shift"), (False, True, "pallas")],
+                         ids=["True-True", "False-True", "False-False", "pallas-False-True"])
+def test_remat_does_not_change_gradients(setup, rb, ra, engine, monkeypatch):
     """Rematerialization (all blocks / keeping the bottleneck / keeping the
-    attention too) changes neither the state-dict keys nor the gradients."""
-    base = setup["fresh"]()
+    attention too) changes neither the state-dict keys nor the gradients;
+    with the fused engine, the recompute of the attention layers runs the
+    autograd Function FlowAttentionFused's forward again."""
+    from hoig_torch.ops import attn_fused
+
+    fwd_calls = []
+    fwd = attn_fused.attn_fused_fwd
+    monkeypatch.setattr(attn_fused, "attn_fused_fwd",
+                        lambda *args: fwd_calls.append(1) or fwd(*args))
+    vgg, tables, mano_params, ccfg, tcfg = setup["fn_args"]
+    tcfg = dataclasses.replace(tcfg, corner_engine=engine)
+    base = setup["fresh"](tcfg)
     cfg = TrainConfig(image_size=S, conv_dim=8, repeat_num=2, remat=True, remat_bottleneck=rb,
-                      remat_attn=ra, corner_engine="shift")
+                      remat_attn=ra, corner_engine=engine)
     other = setup["fresh"](cfg)
     assert _same(_snapshot(other.g), _snapshot(base.g))
-    vgg, tables, mano_params, ccfg, tcfg = setup["fn_args"]
     ref = make_g_grads_fn(vgg, tables, mano_params, ccfg, tcfg)(base.g, base.d, setup["batch"])
+    n_base = len(fwd_calls)
     out = make_g_grads_fn(vgg, tables, mano_params, ccfg, cfg)(other.g, other.d, setup["batch"])
+    n_remat = len(fwd_calls) - n_base
+    # each fused layer's forward runs twice under remat_attn: once more in the recompute
+    assert (n_base > 0 and n_remat == 2 * n_base) if engine == "pallas" else n_remat == 0, (
+        n_base, n_remat)
     assert ref.keys() == out.keys()
     for n in ref:
         # the recomputed forward repeats the first one's arithmetic
