@@ -20,8 +20,10 @@
 // blocks run in no order, so each entry point here runs a few simple kernels
 // in sequence on the stream, with scratch the wrapper allocates:
 //
-//   * fwd: conv5_kernel writes G (B, H+6, W+6, 128) f32, an implicit-GEMM
-//     5x5 correlation (8x8 output pixels x 128 outputs per block, 32-channel
+//   * fwd: G (B, H+6, W+6, 128) f32, a 5x5 correlation, from
+//     conv5_tc_kernel on the tensor cores for a bf16 source (entry point
+//     hoig_attn_fused_fwd_tc), from conv5_kernel in FP32 for an f32 one (an
+//     implicit GEMM: 8x8 output pixels x 128 outputs per block, 32-channel
 //     slices of the 12x12 source window and of one offset's weights staged in
 //     shared memory, 4 x 8 sums per thread); fwd_pixel_kernel then gives a
 //     warp one pixel: the 4 nonzero coefficient terms of acc, the 128 -> 25
@@ -35,23 +37,31 @@
 //     fold_kernel folds the edge margins onto the border pixels and divides
 //     by 25.
 //   * bwd_a_gsrc: dg_kernel writes dG[q] = sum_e (ay ax g_acc)[q - e] on the
-//     halo; conv5_kernel in its transposed form projects dG back through
-//     W_t^T onto the padded frame; fold_kernel folds the margins.
+//     halo; the transposed form of the 5x5 product projects dG back through
+//     W_t^T onto the padded frame (conv5_tc_kernel for bf16 weights, entry
+//     point hoig_attn_fused_bwd_a_gsrc_tc; conv5_kernel for f32 ones);
+//     fold_kernel folds the margins.
 //   * bwd_a_dw: dg_kernel, then dw_kernel: one block per (offset, 64-channel
 //     tile, slice of the pixels) sums src[m] (x) dG[m - t] over its slice
-//     into a partial, and dw_reduce_kernel adds the slices in order. No float
+//     into a partial, and slice_sum_kernel adds the slices in order. No float
 //     atomics: every run gives the same bits.
 //
 // What bounds them on an H100 (at the attention's shapes, C = 128..512 over
 // 128^2..32^2 pixels, batch 4): the three 5x5 products (G, the gsrc
-// projection, dW) are 2 * 25 * C * 128 operations per padded pixel, far
-// above the card's operations-per-byte line, so all four entry points are
-// bound by arithmetic. Here those products run as FP32 fused multiply-adds
-// on the CUDA cores (a bf16 source is widened to f32 in shared memory),
-// register-blocked 4 x 8 with operands from shared memory: right first; a
-// tensor-core (wgmma) version is the next step. Everything else (the
-// coefficient terms, softmax, the 36-term combines, the folds) is a few
-// percent of the operations and reads each input about once from L2.
+// projection, dW) are 2 * 25 * C * 128 operations per pixel of the (H+6) x
+// (W+6) frame, far above the card's operations-per-byte line, so all four
+// entry points are bound by arithmetic. Under bf16, G and the gsrc
+// projection run on the tensor cores (conv5_tc_kernel, wgmma with bf16
+// operands and f32 accumulators: 8x8-pixel tiles, two per block sharing
+// each offset's weight tile, the A operand read in place from a staged
+// 12x12 window, split-K over the offsets where the frame has few tiles; its
+// own note below), the gsrc projection as three passes over dG split into
+// hi + mid + lo bf16 parts, exact, so that it takes JAX's f32 products. dW,
+// and both products for f32 inputs, run as FP32 fused multiply-adds on the
+// CUDA cores, register-blocked 4 x 8 with operands from shared memory (a
+// bf16 source widened to f32 there). Everything else (the coefficient
+// terms, softmax, the 36-term combines, the folds) is a few percent of the
+// operations and reads each input about once from L2.
 //
 // Numerics. Built with -fmad=false: every elementwise step (the coefficient
 // products, the 4-term acc combine, the V build, the phase-C and bwd-c sums,
@@ -60,10 +70,13 @@
 // order, skipping only terms that are exactly zero; phase-C and bwd-c
 // products are rounded to the source dtype, as bf16 * bf16 is in JAX. The
 // channel reductions (G, the logits, the g_attn dots, the gsrc projection,
-// dW) use explicit fused multiply-adds in an order of their own, so the
-// results that depend on them agree with the plain versions to a tolerance.
+// dW) use explicit fused multiply-adds, or the tensor cores' exact products
+// and f32 sums, in an order of their own, so the results that depend on
+// them agree with the plain versions to a tolerance.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -172,9 +185,10 @@ constexpr int kWin = kT + 4;      // input window edge
 constexpr int kKc = 32;           // reduction slice
 constexpr int kNt = 128;          // outputs per block
 
-template <typename TX, typename TW, bool kTransposed>
+// FP32 on the CUDA cores, for f32 inputs (bf16 ones take conv5_tc_kernel)
+template <bool kTransposed>
 __global__ void __launch_bounds__(kThreads)
-conv5_kernel(const TX* __restrict__ x, const TW* __restrict__ w0s, float* __restrict__ out,
+conv5_kernel(const float* __restrict__ x, const float* __restrict__ w0s, float* __restrict__ out,
              int xh, int xw, int kdim, int oh, int ow, int ndim, int off) {
   __shared__ float xs[kWin * kWin][kKc + 1];
   __shared__ float ws[kKc][kNt + 1];
@@ -203,11 +217,11 @@ conv5_kernel(const TX* __restrict__ x, const TW* __restrict__ w0s, float* __rest
       float v = 0.f;
       if (k < kdim) {
         if (kTransposed) {
-          if (y >= 0 && y < xh && xx >= 0 && xx < xw) v = to_f32(x[((b * xh + y) * xw + xx) * kdim + k]);
+          if (y >= 0 && y < xh && xx >= 0 && xx < xw) v = x[((b * xh + y) * xw + xx) * kdim + k];
         } else {
           y = clampi(y, 0, xh - 1);
           xx = clampi(xx, 0, xw - 1);
-          v = to_f32(x[((b * xh + y) * xw + xx) * kdim + k]);
+          v = x[((b * xh + y) * xw + xx) * kdim + k];
         }
       }
       xs[q][kk] = v;
@@ -221,13 +235,13 @@ conv5_kernel(const TX* __restrict__ x, const TW* __restrict__ w0s, float* __rest
           n = i / kKc;
           kk = i - n * kKc;
           if (n0 + n < ndim && k0 + kk < kdim) {
-            v = to_f32(w0s[((long long)(kK2 - 1 - u) * ndim + n0 + n) * kdim + k0 + kk]);
+            v = w0s[((long long)(kK2 - 1 - u) * ndim + n0 + n) * kdim + k0 + kk];
           }
         } else {
           kk = i / kNt;
           n = i - kk * kNt;
           if (n0 + n < ndim && k0 + kk < kdim) {
-            v = to_f32(w0s[((long long)u * kdim + k0 + kk) * ndim + n0 + n]);
+            v = w0s[((long long)u * kdim + k0 + kk) * ndim + n0 + n];
           }
         }
         ws[kk][n] = v;
@@ -267,12 +281,12 @@ conv5_kernel(const TX* __restrict__ x, const TW* __restrict__ w0s, float* __rest
   }
 }
 
-template <typename TX, typename TW, bool kTransposed>
-cudaError_t launch_conv5(const TX* x, const TW* w0s, float* out, int b, int xh, int xw, int kdim,
-                         int oh, int ow, int ndim, int off, cudaStream_t s) {
+template <bool kTransposed>
+cudaError_t launch_conv5(const float* x, const float* w0s, float* out, int b, int xh, int xw,
+                         int kdim, int oh, int ow, int ndim, int off, cudaStream_t s) {
   const dim3 grid(((oh + kT - 1) / kT) * ((ow + kT - 1) / kT), (ndim + kNt - 1) / kNt, b);
-  conv5_kernel<TX, TW, kTransposed><<<grid, kThreads, 0, s>>>(x, w0s, out, xh, xw, kdim, oh, ow,
-                                                              ndim, off);
+  conv5_kernel<kTransposed><<<grid, kThreads, 0, s>>>(x, w0s, out, xh, xw, kdim, oh, ow, ndim,
+                                                      off);
   return cudaGetLastError();
 }
 
@@ -642,14 +656,22 @@ dw_kernel(const T* __restrict__ src, const float* __restrict__ dg, float* __rest
   }
 }
 
-// dw[i] = sum over slices s, ascending, of part[s, i]
+// out[i] = sum over slices s, ascending, of part[s, i] (the second pass of
+// every split-K here: dW, and the tensor-core 5x5 products)
 __global__ void __launch_bounds__(kThreads)
-dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw, long long n, int slices) {
+slice_sum_kernel(const float* __restrict__ part, float* __restrict__ out, long long n, int slices) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   float tot = part[i];
   for (int s = 1; s < slices; ++s) tot = __fadd_rn(tot, part[s * n + i]);
-  dw[i] = tot;
+  out[i] = tot;
+}
+
+cudaError_t launch_slice_sum(const float* part, float* out, long long n, int slices,
+                             cudaStream_t s) {
+  slice_sum_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(part, out, n,
+                                                                                slices);
+  return cudaGetLastError();
 }
 
 bool bad_dims(int b, int h, int w, int c) {
@@ -662,21 +684,418 @@ bool bad_dims(int b, int h, int w, int c) {
     if (err_ != cudaSuccess) return err_;   \
   } while (0)
 
+// -------------------------------------------- 5x5 products on the tensor cores
+//
+// conv5_tc_kernel: the two products of conv5_kernel for bf16 weights, as
+// warpgroup matrix multiplies (wgmma.mma_async m64n128k16, bf16 operands, f32
+// accumulators; sm_90a). It replaces, with conv5_kernel's FP32 form for f32
+// inputs, phase A of hoig_tpu/ops/attn_pallas.py `_fwd_kernel` and the
+// projection of `_bwd_a_gsrc_kernel`.
+//
+//   forward (G): M = the pixels of the (H+6) x (W+6) frame, N = 128, K = 25
+//     offsets x C; A is the bf16 source, read edge-padded; one pass. A
+//     product of two bf16 values is exact in f32, as phase A's bf16 x bf16
+//     dot with an f32 result is in JAX.
+//   transposed (the gsrc projection): M = the pixels of the (H+10) x (W+10)
+//     frame, N = C, K = 25 offsets x 128; A is the f32 dG, zero outside its
+//     frame, split when staged into three bf16 parts with hi + mid + lo == dG
+//     exactly (split3), and each k-step runs three wgmma against the same B
+//     tile. w0s is exactly bf16, so each part's product with it is exact in
+//     f32 and the three together are JAX's f32 product dG x w0s (the Pallas
+//     kernel widens w0s and multiplies in f32); only the order of the f32
+//     sums differs, and the tensor cores' own way of adding them.
+//
+// Tiling. A block is two warpgroups; each owns one 8x8 tile of output pixels
+// (the 64 rows of its wgmma) from the linear list of tiles over (image, tile
+// row, tile column), and the two share each B tile. For each 64-wide slice
+// of the reduction's channels (or hidden units), the block stages each
+// tile's 12x12 input window once, in the no-swizzle core-matrix order
+// [8-channel chunk][window row][window column], 16 bytes per pixel and
+// chunk. The A operand of offset (uy, ux) is then that window read in place:
+// 8 neighbouring pixels of a window row are the 8 rows of a core matrix, the
+// next output row is 12 pixels on (the descriptor's stride byte offset), the
+// next 8 channels 144 pixels on (its leading byte offset). An offset is only
+// a descriptor's start address: no re-staging per offset and no A operand
+// from registers. The 25 offsets' (64 x 128) B tiles stream through two
+// shared-memory buffers by cp.async, the next in flight while the current
+// one's wgmma run. Where the frame has few tiles (layers 3-9: 100 tiles of
+// G for 132 SMs), the wrapper splits K over contiguous ranges of the 25
+// offsets (blockIdx.z); slice_sum_kernel adds the partials in a fixed order
+// (no float atomics: every run gives the same bits). K tails (C not a
+// multiple of 64) and N tails (C not a multiple of 128) are zero-filled in
+// staging; a tile past the frame is computed on zeros and not stored.
+//
+// What bounds it on an H100: the products are 2 x 25 x C x 128 operations
+// per pixel of the frame, 223 GFLOP per call for the forward and three times
+// that for the transposed form, 0.23 and 0.68 ms at the tensor cores' 989
+// TFLOP/s. Each 16 KB B tile feeds 2 x 64 rows, 128 operations per byte read
+// from L2, so the B stream from L2 and the per-offset synchronisation, not
+// the tensor cores, bound this first version.
+// kT, kTcWG and kTcN are counted again by hoig_torch/ops/attn_fused.py::_tc_splits
+// (_TC_TILE, _TC_N), which picks the split-K factor and sizes the partials
+constexpr int kTcWG = 2;                        // warpgroups per block
+constexpr int kTcThreads = 128 * kTcWG;
+constexpr int kTcKs = 64;                       // reduction slice staged per pass over the offsets
+constexpr int kTcKc = kTcKs / 8;                // 16-byte chunks per pixel and slice
+constexpr int kTcWinPix = kWin * kWin;          // 144 pixels per window
+constexpr int kTcWinUnits = kTcWinPix * kTcKc;  // 16-byte units per window (and per part)
+constexpr int kTcN = 128;                       // outputs per block
+constexpr int kTcBUnits = kTcKs * kTcN / 8;     // 16-byte units per B tile (16 KB)
+
+template <bool kTransposed>
+constexpr int tc_smem_bytes() {  // the windows (three parts each when transposed), two B tiles
+  return (kTcWG * (kTransposed ? 3 : 1) * kTcWinUnits + 2 * kTcBUnits) * 16;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma matrix descriptor without swizzle: start address, leading byte offset
+// (between core matrices along K) and stride byte offset (along M or N)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFFu) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// makes this thread's shared-memory writes visible to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins the accumulators: no read or write of them moves across a wgmma fence or wait
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d = A (64 x 16, K-major) B (16 x 128; MN-major if kTnspB, else K-major)
+// + (accumulate ? d : 0), f32
+template <int kTnspB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspB));
+}
+
+// x == hi + mid + lo exactly, each part a bf16 (its 16 bits returned): hi
+// keeps x's top 16 bits (truncation, which never rounds past the bf16
+// range), mid the top 16 bits of the exact remainder x - hi, and lo the
+// rest, which has at most 8 significant bits and is a bf16 itself wherever
+// x's lowest bit is not below bf16's smallest subnormal, 2^-133 (every
+// |x| >= 2^-110). hoig_torch/ops/attn_fused.py::split_bf16x3 is the plain version.
+__device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const uint32_t hb = __float_as_uint(x) & 0xFFFF0000u;
+  const float r1 = __fsub_rn(x, __uint_as_float(hb));
+  const uint32_t mb = __float_as_uint(r1) & 0xFFFF0000u;
+  const float r2 = __fsub_rn(r1, __uint_as_float(mb));
+  hi = hb >> 16;
+  mid = mb >> 16;
+  lo = __float_as_uint(r2) >> 16;
+}
+
+struct TcTile {
+  long long b;
+  int oy0, ox0;
+  bool ok;
+};
+
+template <bool kTransposed>
+__global__ void __launch_bounds__(kTcThreads, kTransposed ? 1 : 2)
+conv5_tc_kernel(const void* __restrict__ xv, const __nv_bfloat16* __restrict__ w0s,
+                float* __restrict__ out, int bsz, int xh, int xw, int kdim, int oh, int ow,
+                int ndim, int off, int splits, int vec) {
+  extern __shared__ __align__(128) uint4 tc_smem[];
+  constexpr int kParts = kTransposed ? 3 : 1;  // hi, mid, lo of dG
+  uint4* const a_s = tc_smem;                                 // [kTcWG][kParts][kTcWinUnits]
+  uint4* const b_s = tc_smem + kTcWG * kParts * kTcWinUnits;  // [2][kTcBUnits]
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int tiles_x = (ow + kT - 1) / kT;
+  const int tiles_img = ((oh + kT - 1) / kT) * tiles_x;
+  const long long n_tiles = (long long)bsz * tiles_img;
+  auto tile_at = [&](int i) {
+    const long long t = (long long)blockIdx.x * kTcWG + i;
+    const int r = static_cast<int>(t % tiles_img);
+    return TcTile{t / tiles_img, (r / tiles_x) * kT, (r % tiles_x) * kT, t < n_tiles};
+  };
+  static_assert(kTcWG == 2, "one tile per warpgroup, two warpgroups");
+  const TcTile tile0 = tile_at(0);
+  const TcTile tile1 = tile_at(1);
+  const int n0 = blockIdx.y * kTcN;
+  const int u_begin = kK2 * static_cast<int>(blockIdx.z) / splits;
+  const int u_end = kK2 * (static_cast<int>(blockIdx.z) + 1) / splits;
+
+  // B tile of offset u for the slice at k0 into buffer buf; lanes are mapped
+  // so that a warp reads 64-byte runs of w0s and writes whole 128-byte rows
+  // of shared memory
+  auto stage_b = [&](int u, int buf, int k0) {
+    uint4* bs = b_s + buf * kTcBUnits;
+    for (int i = tid; i < kTcBUnits; i += kTcThreads) {
+      const int lane = i & 31;
+      const int grp = i >> 5;
+      if constexpr (!kTransposed) {
+        // MN-major: unit nc * kTcKs + k holds w0s[u, k0 + k, 8 nc .. 8 nc + 7]
+        const int k = (grp & 7) * 8 + (lane & 7);
+        const int nc = (grp >> 3) * 4 + (lane >> 3);
+        const bool ok = k0 + k < kdim;
+        const __nv_bfloat16* src = ok ? w0s + ((long long)u * kdim + k0 + k) * ndim + n0 + 8 * nc : w0s;
+        cp_async16(smem_u32(bs + nc * kTcKs + k), src, ok ? 16 : 0);
+      } else {
+        // K-major: unit kc * kTcN + n holds w0s[24 - u, n0 + n, k0 + 8 kc .. + 7]
+        const int n = (grp & 15) * 8 + (lane & 7);
+        const int kc = (grp >> 4) * 4 + (lane >> 3);
+        const bool ok = n0 + n < ndim;
+        const __nv_bfloat16* src =
+            ok ? w0s + ((long long)(kK2 - 1 - u) * ndim + n0 + n) * kdim + k0 + 8 * kc : w0s;
+        cp_async16(smem_u32(bs + kc * kTcN + n), src, ok ? 16 : 0);
+      }
+    }
+  };
+
+  // forward: one accumulator across the whole reduction. Transposed: each
+  // offset's 4 x 3 wgmma start a fresh d, which is then added into sum with
+  // IEEE f32 additions. The tensor cores add their f32 products in their
+  // own way, not rounding each addend; over the whole chain of 9,600
+  // products per output that drifted several times further from the plain
+  // version than conv5_kernel's FMAs, close to this output's 1e-5 bound in
+  // chip_smoke.py
+  float d[64];
+  float sum[kTransposed ? 64 : 1];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kTransposed ? 64 : 1); ++i) sum[i] = 0.f;
+  const uint32_t a_base = smem_u32(a_s + wg * kParts * kTcWinUnits);
+  const uint32_t b_base = smem_u32(b_s);
+
+  for (int k0 = 0; k0 < kdim; k0 += kTcKs) {
+    __syncthreads();  // both warpgroups' products of the previous slice are done
+    // the two windows of this slice, chunk-fastest so that a warp reads
+    // whole pixels' channel runs
+    for (int i = tid; i < kTcWG * kTcWinUnits; i += kTcThreads) {
+      const int wi = i / kTcWinUnits;
+      const int j = i - wi * kTcWinUnits;
+      const int kc = j % kTcKc;
+      const int q = j / kTcKc;
+      const int wy = q / kWin;
+      const int wx = q - wy * kWin;
+      const TcTile t = wi ? tile1 : tile0;
+      const int k = k0 + 8 * kc;
+      uint4* dst = a_s + wi * kParts * kTcWinUnits + (kc * kWin + wy) * kWin + wx;
+      if constexpr (!kTransposed) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (t.ok && k < kdim) {
+          const int y = clampi(t.oy0 + wy + off, 0, xh - 1);
+          const int x = clampi(t.ox0 + wx + off, 0, xw - 1);
+          const unsigned short* p =
+              static_cast<const unsigned short*>(xv) + ((t.b * xh + y) * xw + x) * kdim + k;
+          if (vec) {
+            v = *reinterpret_cast<const uint4*>(p);
+          } else {
+            uint32_t wd[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const uint32_t lo = k + 2 * e < kdim ? p[2 * e] : 0u;
+              const uint32_t hi = k + 2 * e + 1 < kdim ? p[2 * e + 1] : 0u;
+              wd[e] = lo | (hi << 16);
+            }
+            v = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+          }
+        }
+        *dst = v;
+      } else {
+        uint32_t part[3][4] = {};
+        const int y = t.oy0 + wy + off;
+        const int x = t.ox0 + wx + off;
+        if (t.ok && y >= 0 && y < xh && x >= 0 && x < xw) {  // kdim (128) is whole slices
+          const float* p = static_cast<const float*>(xv) + ((t.b * xh + y) * xw + x) * kdim + k;
+          const float4 f0 = *reinterpret_cast<const float4*>(p);
+          const float4 f1 = *reinterpret_cast<const float4*>(p + 4);
+          const float f[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            uint32_t h0, m0, l0, h1, m1, l1;
+            split3(f[2 * e], h0, m0, l0);
+            split3(f[2 * e + 1], h1, m1, l1);
+            part[0][e] = h0 | (h1 << 16);
+            part[1][e] = m0 | (m1 << 16);
+            part[2][e] = l0 | (l1 << 16);
+          }
+        }
+#pragma unroll
+        for (int pt = 0; pt < 3; ++pt) {
+          dst[pt * kTcWinUnits] = make_uint4(part[pt][0], part[pt][1], part[pt][2], part[pt][3]);
+        }
+      }
+    }
+    stage_b(u_begin, 0, k0);
+    cp_async_commit();
+    for (int u = u_begin; u < u_end; ++u) {
+      const int buf = (u - u_begin) & 1;
+      cp_async_wait_all();
+      fence_proxy_async();
+      __syncthreads();  // B(u) and the windows are in place; the other buffer's readers are done
+      if (u + 1 < u_end) stage_b(u + 1, buf ^ 1, k0);
+      cp_async_commit();
+      const uint32_t a_u = a_base + ((u / 5) * kWin + u % 5) * 16;
+      const uint32_t b_u = b_base + buf * kTcBUnits * 16;
+      wgmma_fence();
+      fence_acc(d);
+#pragma unroll
+      for (int kk = 0; kk < kTcKs / 16; ++kk) {
+        const uint32_t a_k = a_u + 2 * kk * kTcWinPix * 16;
+        if constexpr (!kTransposed) {
+          wgmma_m64n128k16<1>(d, gmma_desc(a_k, kTcWinPix * 16, kWin * 16),
+                              gmma_desc(b_u + kk * 16 * 16, 8 * 16, kTcKs * 16), 1);
+        } else {
+          const uint64_t db = gmma_desc(b_u + 2 * kk * kTcN * 16, kTcN * 16, 8 * 16);
+#pragma unroll
+          for (int pt = 0; pt < 3; ++pt) {
+            wgmma_m64n128k16<0>(
+                d, gmma_desc(a_k + pt * kTcWinUnits * 16, kTcWinPix * 16, kWin * 16), db,
+                kk + pt > 0);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(d);
+      if constexpr (kTransposed) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sum[i] = __fadd_rn(sum[i], d[i]);
+      }
+    }
+  }
+  if constexpr (kTransposed) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = sum[i];
+  }
+
+  // accumulator layout of m64nNk16: thread (warp w, lane l) holds rows
+  // 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1)
+  const TcTile t = wg ? tile1 : tile0;
+  if (!t.ok) return;
+  const int warp = (tid & 127) >> 5;
+  const int lane = tid & 31;
+  float* dst = out + (long long)blockIdx.z * ((long long)bsz * oh * ow * ndim);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int oy = t.oy0 + 2 * warp + half;
+    const int ox = t.ox0 + (lane >> 2);
+    if (oy >= oh || ox >= ow) continue;
+    float* row = dst + ((t.b * oh + oy) * ow + ox) * ndim + n0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      if (n0 + col < ndim) store_pair(row + col, d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// One tensor-core 5x5 product into out (splits == 1) or into splits partials
+// in part that slice_sum_kernel then adds into out.
+template <bool kTransposed>
+cudaError_t launch_conv5_tc(const void* x, const void* w0s, float* out, float* part, int b,
+                            int xh, int xw, int kdim, int oh, int ow, int ndim, int off,
+                            int splits, int vec, cudaStream_t s) {
+  if (splits < 1 || splits > kK2 || reinterpret_cast<uintptr_t>(w0s) % 16 != 0 ||
+      (kTransposed && (kdim % kTcKs != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0))) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = tc_smem_bytes<kTransposed>();
+  HOIG_TRY(cudaFuncSetAttribute(conv5_tc_kernel<kTransposed>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  const long long tiles = (long long)b * ((oh + kT - 1) / kT) * ((ow + kT - 1) / kT);
+  const dim3 grid(static_cast<unsigned>((tiles + kTcWG - 1) / kTcWG), (ndim + kTcN - 1) / kTcN,
+                  splits);
+  conv5_tc_kernel<kTransposed><<<grid, kTcThreads, smem, s>>>(
+      x, static_cast<const __nv_bfloat16*>(w0s), splits > 1 ? part : out, b, xh, xw, kdim, oh,
+      ow, ndim, off, splits, vec);
+  HOIG_TRY(cudaGetLastError());
+  if (splits == 1) return cudaSuccess;
+  return launch_slice_sum(part, out, (long long)b * oh * ow * ndim, splits, s);
+}
+
+// phases A-tail, B and C from G
 template <typename T>
+cudaError_t launch_fwd_pixel(const void* src, const void* acc0, const void* w1, const void* b1,
+                             const void* fy, const void* fx, const void* wy, const void* wx,
+                             const float* g, void* out, void* acc, void* attn, int b, int h, int w,
+                             int c, cudaStream_t s) {
+  const long long n_pix = (long long)b * h * w;
+  fwd_pixel_kernel<T><<<(unsigned)((n_pix + kPixPerBlock - 1) / kPixPerBlock), kThreads, 0, s>>>(
+      static_cast<const T*>(src), static_cast<const float*>(acc0), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(fy), static_cast<const float*>(fx),
+      static_cast<const float*>(wy), static_cast<const float*>(wx), g, static_cast<T*>(out),
+      static_cast<float*>(acc), static_cast<float*>(attn), n_pix, h, w, c);
+  return cudaGetLastError();
+}
+
+// f32: G as FP32
 int fwd(const void* src, const void* acc0, const void* w0s, const void* w1, const void* b1,
         const void* fy, const void* fx, const void* wy, const void* wx, void* out, void* acc,
         void* attn, void* g, int b, int h, int w, int c, cudaStream_t s) {
-  const T* src_ = static_cast<const T*>(src);
   float* g_ = static_cast<float*>(g);
-  HOIG_TRY(launch_conv5<T, T, false>(src_, static_cast<const T*>(w0s), g_, b, h, w, c,
-                                     h + 2 * kHalo, w + 2 * kHalo, kF, -kPad, s));
-  const long long n_pix = (long long)b * h * w;
-  fwd_pixel_kernel<T><<<(unsigned)((n_pix + kPixPerBlock - 1) / kPixPerBlock), kThreads, 0, s>>>(
-      src_, static_cast<const float*>(acc0), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(fy), static_cast<const float*>(fx),
-      static_cast<const float*>(wy), static_cast<const float*>(wx), g_, static_cast<T*>(out),
-      static_cast<float*>(acc), static_cast<float*>(attn), n_pix, h, w, c);
-  return cudaGetLastError();
+  HOIG_TRY(launch_conv5<false>(static_cast<const float*>(src), static_cast<const float*>(w0s), g_,
+                               b, h, w, c, h + 2 * kHalo, w + 2 * kHalo, kF, -kPad, s));
+  return launch_fwd_pixel<float>(src, acc0, w1, b1, fy, fx, wy, wx, g_, out, acc, attn, b, h, w, c,
+                                 s);
+}
+
+// bf16: G on the tensor cores
+int fwd_tc(const void* src, const void* acc0, const void* w0s, const void* w1, const void* b1,
+           const void* fy, const void* fx, const void* wy, const void* wx, void* out, void* acc,
+           void* attn, void* g, void* part, int b, int h, int w, int c, int splits,
+           cudaStream_t s) {
+  float* g_ = static_cast<float*>(g);
+  const int vec = c % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  HOIG_TRY(launch_conv5_tc<false>(src, w0s, g_, static_cast<float*>(part), b, h, w, c,
+                                  h + 2 * kHalo, w + 2 * kHalo, kF, -kPad, splits, vec, s));
+  return launch_fwd_pixel<__nv_bfloat16>(src, acc0, w1, b1, fy, fx, wy, wx, g_, out, acc, attn, b,
+                                         h, w, c, s);
 }
 
 template <typename T>
@@ -698,7 +1117,7 @@ int bwd_c(const void* src, const void* fy, const void* fx, const void* wy, const
   return launch_fold(static_cast<const float*>(gpad), static_cast<float*>(gsrc), b, h, w, c, 1, s);
 }
 
-template <typename T>
+// f32 weights: the projection as FP32
 int bwd_a_gsrc(const void* gacc, const void* fy, const void* fx, const void* wy, const void* wx,
                const void* w0s, void* gsrc, void* dg, void* gpad, int b, int h, int w, int c,
                cudaStream_t s) {
@@ -707,8 +1126,23 @@ int bwd_a_gsrc(const void* gacc, const void* fy, const void* fx, const void* wy,
   HOIG_TRY(launch_dg(static_cast<const float*>(gacc), static_cast<const float*>(fy),
                      static_cast<const float*>(fx), static_cast<const float*>(wy),
                      static_cast<const float*>(wx), dg_, b, h, w, s));
-  HOIG_TRY(launch_conv5<float, T, true>(dg_, static_cast<const T*>(w0s), gpad_, b, h + 2 * kHalo,
-                                        w + 2 * kHalo, kF, h + 2 * kPad, w + 2 * kPad, c, -4, s));
+  HOIG_TRY(launch_conv5<true>(dg_, static_cast<const float*>(w0s), gpad_, b, h + 2 * kHalo,
+                              w + 2 * kHalo, kF, h + 2 * kPad, w + 2 * kPad, c, -4, s));
+  return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, 0, s);
+}
+
+// bf16 weights: the projection on the tensor cores, dG split in three
+int bwd_a_gsrc_tc(const void* gacc, const void* fy, const void* fx, const void* wy, const void* wx,
+                  const void* w0s, void* gsrc, void* dg, void* gpad, void* part, int b, int h,
+                  int w, int c, int splits, cudaStream_t s) {
+  float* dg_ = static_cast<float*>(dg);
+  float* gpad_ = static_cast<float*>(gpad);
+  HOIG_TRY(launch_dg(static_cast<const float*>(gacc), static_cast<const float*>(fy),
+                     static_cast<const float*>(fx), static_cast<const float*>(wy),
+                     static_cast<const float*>(wx), dg_, b, h, w, s));
+  HOIG_TRY(launch_conv5_tc<true>(dg_, w0s, gpad_, static_cast<float*>(part), b, h + 2 * kHalo,
+                                 w + 2 * kHalo, kF, h + 2 * kPad, w + 2 * kPad, c, -4, splits, 0,
+                                 s));
   return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, 0, s);
 }
 
@@ -727,10 +1161,7 @@ int bwd_a_dw(const void* src, const void* gacc, const void* fy, const void* fx, 
   dw_kernel<T><<<grid, kThreads, 0, s>>>(static_cast<const T*>(src), dg_, part_, h, w, c, n_pos,
                                          per_slice);
   HOIG_TRY(cudaGetLastError());
-  const long long n = (long long)kK2 * c * kF;
-  dw_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      part_, static_cast<float*>(dw), n, slices);
-  return cudaGetLastError();
+  return launch_slice_sum(part_, static_cast<float*>(dw), (long long)kK2 * c * kF, slices, s);
 }
 
 }  // namespace
@@ -740,13 +1171,22 @@ extern "C" int hoig_attn_fused_fwd(const void* src, const void* acc0, const void
                                    const void* wy, const void* wx, void* out, void* acc,
                                    void* attn, void* g, int b, int h, int w, int c, int is_bf16,
                                    void* stream) {
+  // f32 only: a bf16 source takes hoig_attn_fused_fwd_tc
+  if (bad_dims(b, h, w, c) || is_bf16) return cudaErrorInvalidValue;
+  return fwd(src, acc0, w0s, w1, b1, fy, fx, wy, wx, out, acc, attn, g, b, h, w, c,
+             static_cast<cudaStream_t>(stream));
+}
+
+// bf16 only: phase A's product G on the tensor cores (conv5_tc_kernel);
+// part: splits x (B, H+6, W+6, 128) f32 partials when splits > 1
+extern "C" int hoig_attn_fused_fwd_tc(const void* src, const void* acc0, const void* w0s,
+                                      const void* w1, const void* b1, const void* fy,
+                                      const void* fx, const void* wy, const void* wx, void* out,
+                                      void* acc, void* attn, void* g, void* part, int b, int h,
+                                      int w, int c, int splits, void* stream) {
   if (bad_dims(b, h, w, c)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return fwd<__nv_bfloat16>(src, acc0, w0s, w1, b1, fy, fx, wy, wx, out, acc, attn, g, b, h, w,
-                              c, s);
-  }
-  return fwd<float>(src, acc0, w0s, w1, b1, fy, fx, wy, wx, out, acc, attn, g, b, h, w, c, s);
+  return fwd_tc(src, acc0, w0s, w1, b1, fy, fx, wy, wx, out, acc, attn, g, part, b, h, w, c,
+                splits, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int hoig_attn_fused_bwd_c(const void* src, const void* fy, const void* fx,
@@ -767,12 +1207,21 @@ extern "C" int hoig_attn_fused_bwd_a_gsrc(const void* gacc, const void* fy, cons
                                           const void* wy, const void* wx, const void* w0s,
                                           void* gsrc, void* dg, void* gpad, int b, int h, int w,
                                           int c, int is_bf16, void* stream) {
+  // f32 only: bf16 weights take hoig_attn_fused_bwd_a_gsrc_tc
+  if (bad_dims(b, h, w, c) || is_bf16) return cudaErrorInvalidValue;
+  return bwd_a_gsrc(gacc, fy, fx, wy, wx, w0s, gsrc, dg, gpad, b, h, w, c,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// bf16 weights only: the gsrc projection on the tensor cores (conv5_tc_kernel,
+// dG split in three); part: splits x (B, H+10, W+10, C) f32 when splits > 1
+extern "C" int hoig_attn_fused_bwd_a_gsrc_tc(const void* gacc, const void* fy, const void* fx,
+                                             const void* wy, const void* wx, const void* w0s,
+                                             void* gsrc, void* dg, void* gpad, void* part, int b,
+                                             int h, int w, int c, int splits, void* stream) {
   if (bad_dims(b, h, w, c)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return bwd_a_gsrc<__nv_bfloat16>(gacc, fy, fx, wy, wx, w0s, gsrc, dg, gpad, b, h, w, c, s);
-  }
-  return bwd_a_gsrc<float>(gacc, fy, fx, wy, wx, w0s, gsrc, dg, gpad, b, h, w, c, s);
+  return bwd_a_gsrc_tc(gacc, fy, fx, wy, wx, w0s, gsrc, dg, gpad, part, b, h, w, c, splits,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int hoig_attn_fused_bwd_a_dw(const void* src, const void* gacc, const void* fy,

@@ -20,7 +20,14 @@ phase-A backward (`attn_fused_bwd_a_gsrc`, `attn_fused_bwd_a_dw`).
 
 Each of the four wrappers runs its plain PyTorch version (`*_reference`)
 for CPU tensors and, for CUDA tensors, launches its entry point of
-csrc/attn_fused.cu or raises. The plain versions follow the TPU kernels'
+csrc/attn_fused.cu or raises. B4-fwd and B4-bwd-a-gsrc have two entry
+points each, chosen by dtype: bf16 runs their 5x5 product on the tensor
+cores (`hoig_attn_fused_fwd_tc`, `hoig_attn_fused_bwd_a_gsrc_tc`, counted as
+`attn_fused_fwd_tc` and `attn_fused_bwd_a_gsrc_tc`), f32 as FP32 on the CUDA
+cores (`hoig_attn_fused_fwd`, `hoig_attn_fused_bwd_a_gsrc`, counted under
+their own names). The gsrc projection's tensor-core form splits the f32 dG
+into three bf16 parts (`split_bf16x3`) whose products with the bf16 weights
+are exact in f32. The plain versions follow the TPU kernels'
 precision: phase-A products from the input dtype with f32 sums; the
 coefficient fields, the residuals and the softmax in f32; the phase-C and
 bwd-c products in the source dtype (rounded there, as bf16 * bf16 is in
@@ -60,14 +67,22 @@ _NE = EY_HI - EY_LO + 1  # 7 coefficient shifts per axis
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # fwd: src, acc0, w0s, w1, b1, fy, fx, wy, wx, out, acc, attn, g_scratch, b, h, w, c, bf16, stream
+# (fwd and bwd_a_gsrc refuse bf16 = 1: bf16 takes their _tc entry points)
 _FWD_ARGS = [_P] * 13 + [_I] * 5 + [_P]
 # bwd_c: src, fy, fx, wy, wx, attn, g_out, gsrc, g_attn, v_scratch, pad_scratch, b, h, w, c, bf16, stream
 _BWD_C_ARGS = [_P] * 11 + [_I] * 5 + [_P]
+# fwd_tc: as fwd with part_scratch after g_scratch, and splits in place of bf16
+_FWD_TC_ARGS = [_P] * 14 + [_I] * 5 + [_P]
 # bwd_a_gsrc: g_acc, fy, fx, wy, wx, w0s, gsrc, dg_scratch, pad_scratch, b, h, w, c, bf16, stream
 _BWD_A_GSRC_ARGS = [_P] * 9 + [_I] * 5 + [_P]
+# bwd_a_gsrc_tc: as bwd_a_gsrc with part_scratch after pad_scratch, and splits in place of bf16
+_BWD_A_GSRC_TC_ARGS = [_P] * 10 + [_I] * 5 + [_P]
 # bwd_a_dw: src, g_acc, fy, fx, wy, wx, dw, dg_scratch, part_scratch, b, h, w, c, slices, bf16, stream
 _BWD_A_DW_ARGS = [_P] * 9 + [_I] * 6 + [_P]
-_SMS = 132  # the H100's SMs: dW's split over pixels aims at two blocks on each
+_SMS = 132  # the H100's SMs: the split-K factors aim at two blocks on each
+# conv5_tc_kernel's tiling (attn_fused.cu: kT, kTcWG, kTcN), as _tc_splits counts it
+_TC_TILE = 8  # output tiles of 8 x 8 pixels, two per block
+_TC_N = 128  # and 128 outputs wide
 
 
 def _offsets():
@@ -176,6 +191,26 @@ def _product(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A coefficient field times a tensor, the product rounded in x's dtype
     (bf16 * bf16 under bf16), returned in f32 for the sum."""
     return (v[..., None].to(x.dtype) * x).float()
+
+
+def split_bf16x3(x: torch.Tensor):
+    """x (f32) as three bf16 tensors with hi + mid + lo == x exactly, the
+    split the gsrc projection's tensor-core kernel makes of dG when it stages
+    it (csrc/attn_fused.cu, split3): hi keeps x's top 16 bits (a truncation,
+    which never rounds past the bf16 range), mid the top 16 bits of the
+    exact remainder x - hi, lo the rest. The rest has at most 8 significant
+    bits, so it is a bf16 itself wherever x's lowest bit is not below bf16's
+    smallest subnormal 2^-133 (every |x| >= 2^-110); below that lo drops
+    what lies under 2^-133."""
+    def top16(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    x = x.float()
+    hi = top16(x)
+    r1 = x - hi
+    mid = top16(r1)
+    lo = top16(r1 - mid)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), lo.to(torch.bfloat16)
 
 
 # ------------------------------------------------------------ plain versions
@@ -308,9 +343,22 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
+def _tc_splits(b: int, oh: int, ow: int, n: int) -> int:
+    """Split-K factor of a tensor-core 5x5 product over an (oh, ow) frame
+    with n outputs: contiguous ranges of the 25 offsets, enough that about
+    two blocks run on each SM (at most 25); a second pass adds the partials
+    in order (no float atomics). The tiling it counts (_TC_TILE, _TC_N, two
+    tiles per block) is conv5_tc_kernel's in attn_fused.cu (kT, kTcN,
+    kTcWG); if they part, only the speed suffers."""
+    tiles = b * -(-oh // _TC_TILE) * -(-ow // _TC_TILE)
+    blocks = -(-tiles // 2) * -(-n // _TC_N)
+    return max(1, min(K2, -(-2 * _SMS // blocks)))
+
+
 def attn_fused_fwd(src, acc0, w0s, w1, b1, fy_rel, fx_rel, wy, wx):
     """B4-fwd: (out (B, H, W, C) in src's dtype, acc (B, H, W, 128) f32,
-    attn (B, H, W, 25) f32)."""
+    attn (B, H, W, 25) f32). A bf16 source runs phase A's product on the
+    tensor cores, an f32 one as FP32."""
     if src.device.type == "cpu":
         return attn_fused_fwd_reference(src, acc0, w0s, w1, b1, fy_rel, fx_rel, wy, wx)
     b, h, w, c = src.shape
@@ -320,10 +368,16 @@ def attn_fused_fwd(src, acc0, w0s, w1, b1, fy_rel, fx_rel, wy, wx):
     out = torch.empty_like(src)
     acc = torch.empty((b, h, w, F), **f32)
     attn = torch.empty((b, h, w, K2), **f32)
-    g = torch.empty((b, h + 2 * HALO, w + 2 * HALO, F), **f32)
-    _launch("hoig_attn_fused_fwd", "attn_fused_fwd", _FWD_ARGS,
-            _ptrs(src, acc0, w0s, w1, b1, fy_rel, fx_rel, wy, wx, out, acc, attn, g)
-            + [b, h, w, c, int(src.dtype == torch.bfloat16)])
+    hg, wg = h + 2 * HALO, w + 2 * HALO
+    g = torch.empty((b, hg, wg, F), **f32)
+    ptrs = _ptrs(src, acc0, w0s, w1, b1, fy_rel, fx_rel, wy, wx, out, acc, attn, g)
+    if src.dtype == torch.bfloat16:
+        splits = _tc_splits(b, hg, wg, F)
+        part = torch.empty((splits, b, hg, wg, F), **f32) if splits > 1 else g
+        _launch("hoig_attn_fused_fwd_tc", "attn_fused_fwd_tc", _FWD_TC_ARGS,
+                ptrs + [part.data_ptr(), b, h, w, c, splits])
+    else:
+        _launch("hoig_attn_fused_fwd", "attn_fused_fwd", _FWD_ARGS, ptrs + [b, h, w, c, 0])
     return out, acc, attn
 
 
@@ -347,7 +401,9 @@ def attn_fused_bwd_c(src, fy_rel, fx_rel, wy, wx, attn, g_out):
 
 
 def attn_fused_bwd_a_gsrc(g_acc, fy_rel, fx_rel, wy, wx, w0s):
-    """B4-bwd-a-gsrc: the fc_0 half of the source gradient (B, H, W, C) f32."""
+    """B4-bwd-a-gsrc: the fc_0 half of the source gradient (B, H, W, C) f32.
+    bf16 weights run the projection on the tensor cores (dG split in three),
+    f32 ones as FP32."""
     if g_acc.device.type == "cpu":
         return attn_fused_bwd_a_gsrc_reference(g_acc, fy_rel, fx_rel, wy, wx, w0s)
     b, h, w, _ = g_acc.shape
@@ -357,10 +413,17 @@ def attn_fused_bwd_a_gsrc(g_acc, fy_rel, fx_rel, wy, wx, w0s):
     f32 = dict(dtype=torch.float32, device=g_acc.device)
     gsrc = torch.empty((b, h, w, c), **f32)
     dg = torch.empty((b, h + 2 * HALO, w + 2 * HALO, F), **f32)
-    gpad = torch.empty((b, h + 2 * PAD, w + 2 * PAD, c), **f32)
-    _launch("hoig_attn_fused_bwd_a_gsrc", "attn_fused_bwd_a_gsrc", _BWD_A_GSRC_ARGS,
-            _ptrs(g_acc, fy_rel, fx_rel, wy, wx, w0s, gsrc, dg, gpad)
-            + [b, h, w, c, int(w0s.dtype == torch.bfloat16)])
+    hp, wp = h + 2 * PAD, w + 2 * PAD
+    gpad = torch.empty((b, hp, wp, c), **f32)
+    ptrs = _ptrs(g_acc, fy_rel, fx_rel, wy, wx, w0s, gsrc, dg, gpad)
+    if w0s.dtype == torch.bfloat16:
+        splits = _tc_splits(b, hp, wp, c)
+        part = torch.empty((splits, b, hp, wp, c), **f32) if splits > 1 else gpad
+        _launch("hoig_attn_fused_bwd_a_gsrc_tc", "attn_fused_bwd_a_gsrc_tc", _BWD_A_GSRC_TC_ARGS,
+                ptrs + [part.data_ptr(), b, h, w, c, splits])
+    else:
+        _launch("hoig_attn_fused_bwd_a_gsrc", "attn_fused_bwd_a_gsrc", _BWD_A_GSRC_ARGS,
+                ptrs + [b, h, w, c, 0])
     return gsrc
 
 
