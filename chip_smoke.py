@@ -7,7 +7,8 @@ NVIDIA GPU, with the shift attention engine and with the fused one.
 Phases (any failure exits non-zero, nothing falls back to the CPU):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from hoig_torch/csrc (one nvcc each, in
-     parallel) and report the build seconds;
+     parallel), report the build seconds, and hold the tile constants that
+     hoig_torch/ops/attn_fused.py repeats (TILING) against the library's;
   3. drive the serving path once (conditioning + generator_spade_attn at full
      width, 256 px, batch 4, bf16, shift engine, random weights from a seed)
      with every launch counter at 0, and record the inputs each kernel got;
@@ -21,20 +22,21 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      launches of the combine / rasterizer / gather kernels per call and
      finite outputs;
   6. the fused attention engine (corner_engine "pallas", the four B4
-     kernels of hoig_torch/csrc/attn_fused.cu; under bf16, B4-fwd's phase A
-     and B4-bwd-a-gsrc's projection run on the tensor cores, counted as
-     attn_fused_fwd_tc and attn_fused_bwd_a_gsrc_tc) on the same model, data
-     and weights: (a) one serving call from launch counters at 0 (9 / 1 / 2
-     launches of B4-fwd / rasterizer / gather, no combine) with B4-fwd held
-     against its plain version on the nine recorded inputs; (b) one training
-     step (remat off) from counters at 0 (9 of each B4 kernel, 1 / 2 of B2 /
-     B3), each backward kernel held against its plain version on the
-     recorded inputs, finite metrics, every G weight moved; each B4 kernel
-     called twice on each input and held bit-equal to itself, and timed
-     beside its plain version, its library yardstick (cuDNN conv2d and
-     conv_transpose2d of the two tensor-core products alone, named in the
-     kernels line's "library" key) and its FP32 path on the f32-cast
-     inputs; the same first
+     kernels of hoig_torch/csrc/attn_fused.cu; under bf16, B4-fwd's phase A,
+     B4-bwd-a-gsrc's projection and B4-bwd-a-dw run on the tensor cores,
+     counted as attn_fused_fwd_tc, attn_fused_bwd_a_gsrc_tc and
+     attn_fused_bwd_a_dw_tc) on the same model, data and weights: (a) one
+     serving call from launch counters at 0 (9 / 1 / 2 launches of B4-fwd /
+     rasterizer / gather, no combine) with B4-fwd held against its plain
+     version on the nine recorded inputs; (b) one training step (remat off)
+     from counters at 0 (9 of each B4 kernel, 1 / 2 of B2 / B3), each
+     backward kernel held against its plain version on the recorded inputs
+     (dW on the dG that B4-bwd-a-gsrc returned), finite metrics, every G
+     weight moved; each B4 kernel called twice on each input and held
+     bit-equal to itself, and timed beside its plain version, its library
+     yardstick (cuDNN conv2d, conv_transpose2d and the weight gradient of
+     the three tensor-core products alone, named in the kernels line's
+     "library" key) and its FP32 path on the f32-cast inputs; the same first
      step twice more with remat off (their G gradients measure the card's
      run-to-run noise) and once with remat and remat_attn on (18 B4-fwd
      launches: the recompute runs each layer's forward again), its G
@@ -55,10 +57,12 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      metrics, every weight moved, D bit-equal across a gated step; the same
      again with the bf16 remat defaults for the memory peak;
   8. one profiler window over two serving calls and one training step with
-     each engine splits the device time of each by kernel;
+     each engine splits the device time of each by kernel, and asserts 9
+     launches of dg_kernel and of dw_tc_kernel per fused step;
   9. print the kernels line, the card line and, last, the result line.
 
-Details (result.json, profile.txt) go to --out, by default build/chip_smoke/.
+Details (result.json, profile.txt, build.txt: the compiler's report) go to
+--out, by default build/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ import argparse
 import contextlib
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -92,14 +97,15 @@ KERNELS = {
     "attn_fused_bwd_c": ("hoig_torch/csrc/attn_fused.cu", "hoig_tpu/ops/attn_pallas.py:628"),
     "attn_fused_bwd_a_gsrc_tc": ("hoig_torch/csrc/attn_fused.cu",
                                  "hoig_tpu/ops/attn_pallas.py:321"),
-    "attn_fused_bwd_a_dw": ("hoig_torch/csrc/attn_fused.cu", "hoig_tpu/ops/attn_pallas.py:409"),
+    "attn_fused_bwd_a_dw_tc": ("hoig_torch/csrc/attn_fused.cu",
+                               "hoig_tpu/ops/attn_pallas.py:409"),
 }
 # the four B4 wrappers, and the counter each one's bf16 launch adds to: under
-# bf16, B4-fwd's phase A and the gsrc projection run on the tensor cores
+# bf16, B4-fwd's phase A, the gsrc projection and dW run on the tensor cores
 FUSED = ("attn_fused_fwd", "attn_fused_bwd_c", "attn_fused_bwd_a_gsrc", "attn_fused_bwd_a_dw")
 FUSED_BF16 = {"attn_fused_fwd": "attn_fused_fwd_tc", "attn_fused_bwd_c": "attn_fused_bwd_c",
               "attn_fused_bwd_a_gsrc": "attn_fused_bwd_a_gsrc_tc",
-              "attn_fused_bwd_a_dw": "attn_fused_bwd_a_dw"}
+              "attn_fused_bwd_a_dw": "attn_fused_bwd_a_dw_tc"}
 # launches per serving call, and per training step: each of the 9 attention
 # layers combines twice forward; both calls need dsrc, only the second (whose
 # coefficients come from the attention, not from the no-grad flow) needs dv
@@ -117,11 +123,11 @@ IMAGE, BATCH = 256, 4
 # output's largest magnitude (only the order of the f32 sums differs).
 # bf16 inputs: `out` and bwd-c's source gradient within one bf16 ulp (2^-7)
 # of the largest magnitude (a last-bit difference of an f32 sum can move a
-# bf16-rounded product or output by one ulp); the f32 residuals acc, attn,
-# g_attn and dW within 1e-4 of it (channel sums of up to 76,176 terms in
-# another order); the gsrc projection within 1e-5, as in f32: its
-# tensor-core form takes JAX's exact f32 products (dG split in three bf16
-# parts), so a dG rounded to bf16 (about 4e-3) fails.
+# bf16-rounded product or output by one ulp); the f32 residuals acc, attn
+# and g_attn within 1e-4 of it (channel sums in another order); the gsrc
+# projection, dG and dW within 1e-5, as in f32: the tensor-core forms of
+# the projection and of dW take JAX's exact f32 products (dG split in three
+# bf16 parts), so a dG rounded to bf16 (about 4e-3) fails.
 TOL_F32 = 1e-5
 TOL_BF16 = 2.0 ** -7
 TOL_RESID = 1e-4
@@ -759,14 +765,15 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
 
 def _fused_cost(name: str, args) -> tuple[float, float, float]:
     """(bytes, FP32 operations, bf16 tensor-core operations) of one B4 launch
-    on these inputs: each input read once, each output written once; the
-    coefficient terms only where nonzero (4 of 49 for acc and dG, 36 of 121
-    per pixel for phase C and bwd-c). Each 5x5 product is counted over the
-    (H+6) x (W+6) frame of G or dG: the forward needs G only there, and dG is
-    zero outside it, so the gsrc projection and dW pair each of its pixels
-    with the 25 offsets once. Under bf16 the fwd and gsrc products run on the
-    tensor cores, the gsrc one as three bf16 passes (dG split into hi + mid +
-    lo): JAX's f32 product."""
+    on these inputs: each input read once, each output written once (dG is
+    an output of bwd-a-gsrc and an input of dW); the coefficient terms only
+    where nonzero (4 of 49 for acc and dG, 36 of 121 per pixel for phase C
+    and bwd-c). Each 5x5 product is counted over the (H+6) x (W+6) frame of
+    G or dG: the forward needs G only there, and dG is zero outside it, so
+    the gsrc projection and dW pair each of its pixels with the 25 offsets
+    once. Under bf16 the three products run on the tensor cores, the gsrc
+    one and dW as three bf16 passes (dG split into hi + mid + lo): JAX's f32
+    product."""
     F, K2 = 128, 25
     if name == "attn_fused_bwd_a_gsrc":
         g_acc, w0s = args[0], args[5]
@@ -777,8 +784,9 @@ def _fused_cost(name: str, args) -> tuple[float, float, float]:
         es = args[0].element_size()
     lowp = es == 2
     n = b * h * w
+    n_halo = b * (h + 6) * (w + 6)
     fields = 4 * n * 4
-    conv_halo = 2.0 * b * (h + 6) * (w + 6) * K2 * c * F
+    conv_halo = 2.0 * n_halo * K2 * c * F
     if name == "attn_fused_fwd":
         nbytes = (2 * n * c + K2 * c * F) * es + (2 * n * F + n * K2 + F * K2 + K2) * 4 + fields
         f32_ops = 2.0 * n * (4 * F + F * K2 + 36 * c)
@@ -787,11 +795,11 @@ def _fused_cost(name: str, args) -> tuple[float, float, float]:
         nbytes = 2 * n * c * es + (n * c + 2 * n * K2) * 4 + fields
         return nbytes, 2.0 * n * 36 * c * 2, 0.0
     if name == "attn_fused_bwd_a_gsrc":
-        nbytes = K2 * c * F * es + (n * F + n * c) * 4 + fields
+        nbytes = K2 * c * F * es + (n * F + n * c + n_halo * F) * 4 + fields
         dg_ops = 2.0 * n * 4 * F
         return (nbytes, dg_ops, 3 * conv_halo) if lowp else (nbytes, dg_ops + conv_halo, 0.0)
-    nbytes = n * c * es + (n * F + K2 * c * F) * 4 + fields
-    return nbytes, 2.0 * n * 4 * F + conv_halo, 0.0
+    nbytes = n * c * es + (n_halo * F + K2 * c * F) * 4
+    return (nbytes, 0.0, 3 * conv_halo) if lowp else (nbytes, conv_halo, 0.0)
 
 
 def _fused_shape(name: str, args) -> list:
@@ -814,9 +822,11 @@ def _library_call(name: str, args):
     """The one PyTorch call that computes a B4 kernel's 5x5 product on the
     same inputs, as a yardstick the port never calls, or None: cuDNN's
     conv2d of the bf16 edge-padded source with the (128, C, 5, 5) weight for
-    B4-fwd's phase A, and its conv_transpose2d of the f32 dG with the
-    f32-widened weight for the gsrc projection. The call's inputs are made
-    outside the timed call."""
+    B4-fwd's phase A, its conv_transpose2d of the f32 dG with the
+    f32-widened weight for the gsrc projection, and its weight gradient
+    (convolution_backward, weight output only) of that conv2d from the f32
+    dG and the f32-widened edge-padded source for dW. The call's inputs are
+    made outside the timed call."""
     import torch
     import torch.nn.functional as F_
 
@@ -831,7 +841,20 @@ def _library_call(name: str, args):
         x = af._nchw(af._dg_reference(args[0], *af.coeff_axes(*args[1:5])))
         wt = af._conv_weight(args[5]).contiguous(memory_format=torch.channels_last)
         return lambda: F_.conv_transpose2d(x, wt)
+    if name == "attn_fused_bwd_a_dw":
+        src, dg = args
+        x = af._nchw(af.edge_pad(src, af.PAD).float())
+        g = af._nchw(dg)
+        wt = torch.empty((af.F, src.shape[3], af.K, af.K), device=src.device).contiguous(
+            memory_format=torch.channels_last)  # only its shape is read
+        return lambda: torch.ops.aten.convolution_backward(
+            g, x, wt, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [False, True, False])[1]
     return None
+
+
+def _library_dw(grad_weight):
+    """cuDNN's (128, C, 5, 5) weight gradient in dW's (25, C, 128) layout."""
+    return grad_weight.permute(2, 3, 1, 0).reshape(25, grad_weight.shape[1], grad_weight.shape[0])
 
 
 def check_fused_kernel(name: str, calls) -> dict:
@@ -849,16 +872,17 @@ def check_fused_kernel(name: str, calls) -> dict:
     from hoig_torch.ops import attn_fused as af
 
     kern, plain = getattr(af, name), getattr(af, name + "_reference")
-    # the two kernels with a tensor-core entry point under bf16, and the one
-    # PyTorch call of their 5x5 product alone (library_ms)
+    # the three kernels with a tensor-core entry point under bf16, and the
+    # one PyTorch call of their 5x5 product alone (library_ms)
     library = {"attn_fused_fwd": "cuDNN conv2d of phase A's 5x5 product alone",
-               "attn_fused_bwd_a_gsrc": "cuDNN conv_transpose2d of the gsrc projection alone"
-               }.get(name)
+               "attn_fused_bwd_a_gsrc": "cuDNN conv_transpose2d of the gsrc projection alone",
+               "attn_fused_bwd_a_dw": "cuDNN weight gradient (aten.convolution_backward, weight "
+                                      "only) of the 5x5 product, f32"}.get(name)
     # per output, under bf16 inputs: out / gsrc_c one ulp; residuals 1e-4;
-    # the gsrc projection (exact f32 products) 1e-5
+    # the gsrc projection, dG and dW (exact f32 products) 1e-5
     tols = {"attn_fused_fwd": (TOL_BF16, TOL_RESID, TOL_RESID),
             "attn_fused_bwd_c": (TOL_BF16, TOL_RESID),
-            "attn_fused_bwd_a_gsrc": (TOL_F32,), "attn_fused_bwd_a_dw": (TOL_RESID,)}[name]
+            "attn_fused_bwd_a_gsrc": (TOL_F32, TOL_F32), "attn_fused_bwd_a_dw": (TOL_F32,)}[name]
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, f32=0.0, tc=0.0, f32_ms=0.0,
                f32_bytes=0.0, f32_f32=0.0)
     err16 = [0.0] * len(tols)
@@ -896,6 +920,9 @@ def check_fused_kernel(name: str, calls) -> dict:
         lib = _library_call(name, args)
         if lib is not None:
             row["library_ms"] = device_ms(lib)
+            if name == "attn_fused_bwd_a_dw":  # recorded, not held to a bound
+                ref = _tuple(plain(*args))[0]
+                row["library_rel_err"] = max_err(_library_dw(lib()), ref) / float(ref.abs().max())
         if library is not None:
             a32 = tuple(a.float() for a in args)
             row["f32_ms"] = device_ms(lambda: kern(*a32))
@@ -923,8 +950,13 @@ def check_fused_kernel(name: str, calls) -> dict:
     if library is not None:
         f32_bnd, f32_by = bound_ms(tot["f32_bytes"], tot["f32_f32"])
         out.update(f32_ms=tot["f32_ms"], f32_bound_ms=f32_bnd, f32_bound_by=f32_by)
-        log(f"    {library}: {tot['library_ms']:.4f} ms; FP32 path on the f32 inputs "
-            f"{tot['f32_ms']:.4f} ms (bound {f32_bnd:.4f}, {f32_by})")
+        lib_err = [r["library_rel_err"] for r in rows if "library_rel_err" in r]
+        if lib_err:
+            out["library_rel_err"] = max(lib_err)
+        log(f"    {library}: {tot['library_ms']:.4f} ms"
+            + (f" (its error of the largest entry {max(lib_err):.3g})" if lib_err else "")
+            + f"; FP32 path on the f32 inputs {tot['f32_ms']:.4f} ms (bound {f32_bnd:.4f}, "
+            f"{f32_by})")
         for r in rows:
             log(f"    {r['shape']}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}, plain "
                 f"{r['plain_ms']:.3f}, library {r['library_ms']:.4f}, f32 path {r['f32_ms']:.4f}")
@@ -940,7 +972,8 @@ RAGGED_FUSED = ((1, 13, 11, 6), (2, 9, 20, 70), (1, 17, 8, 130), (2, 10, 19, 18)
 
 def check_fused_ragged() -> dict:
     """(c) All four B4 kernels against their plain versions on RAGGED_FUSED,
-    f32 and bf16, each called twice and held bit-equal to itself."""
+    f32 and bf16, each called twice and held bit-equal to itself (dW on the
+    plain version's dG)."""
     import torch
 
     from hoig_torch.ops import attn_fused as af
@@ -958,10 +991,11 @@ def check_fused_ragged() -> dict:
                         0.1 * randn(1, 25), *fields)
             attn = af.attn_fused_fwd(*fwd_args)[2]
             g_acc = randn(b, h, w, 128)
+            dg = af._dg_reference(g_acc, *af.coeff_axes(*fields))
             cases = {"attn_fused_fwd": fwd_args,
                      "attn_fused_bwd_c": (src, *fields, attn, randn(b, h, w, c).to(dtype)),
                      "attn_fused_bwd_a_gsrc": (g_acc, *fields, w0s),
-                     "attn_fused_bwd_a_dw": (src, g_acc, *fields)}
+                     "attn_fused_bwd_a_dw": (src, dg)}
             for name, args in cases.items():
                 got = _tuple(getattr(af, name)(*args))
                 ref = _tuple(getattr(af, name + "_reference")(*args))
@@ -971,7 +1005,8 @@ def check_fused_ragged() -> dict:
                 for i, (g_, r_) in enumerate(zip(got, ref)):
                     tol = TOL_F32 if dtype == torch.float32 else (
                         TOL_BF16 if (name, i) in (("attn_fused_fwd", 0), ("attn_fused_bwd_c", 0))
-                        else TOL_F32 if name == "attn_fused_bwd_a_gsrc" else TOL_RESID)
+                        else TOL_F32 if name in ("attn_fused_bwd_a_gsrc", "attn_fused_bwd_a_dw")
+                        else TOL_RESID)
                     ok, e = _within(g_, r_, tol)
                     check(ok, f"{name} output {i} differs at {(b, h, w, c)} {dtype}: {e}")
                     key = (name, str(dtype).replace("torch.", ""))
@@ -1278,7 +1313,8 @@ KERNEL_CLASSES = (
     ("hand-written kernels", ("combine_fwd_kernel", "combine_bwd_src_kernel", "combine_bwd_v_kernel",
                               "raster_kernel", "gather_kernel", "conv5_kernel", "conv5_tc_kernel",
                               "fwd_pixel_kernel", "bwd_c_pixel_kernel", "bwd_c_gather_kernel",
-                              "fold_kernel", "dg_kernel", "dw_kernel", "slice_sum_kernel")),
+                              "fold_kernel", "dg_kernel", "dw_kernel", "dw_tc_kernel",
+                              "slice_sum_kernel")),
     ("convolutions (cuDNN)", ("xmma", "cudnn", "cutlass", "implicit_gemm", "fprop", "dgrad", "wgrad",
                               "conv")),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "cublas")),
@@ -1295,6 +1331,19 @@ KERNEL_CLASSES = (
 
 def kernel_class(name: str) -> str:
     return next((label for label, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+
+
+def hand_written(by_name: dict, n: int) -> dict:
+    """Device ms and launches per call or step of each hand-written kernel,
+    by its function name as a whole word of the profiler's kernel name (so
+    that dw_kernel does not count dw_tc_kernel's launches)."""
+    out = {}
+    for key in KERNEL_CLASSES[0][1]:
+        pat = re.compile(rf"(?<![A-Za-z_]){key}(?![a-z_])")
+        hits = [v for k, v in by_name.items() if pat.search(k)]
+        if hits:
+            out[key] = dict(ms=sum(v[0] for v in hits) / n / 1e3, count=sum(v[1] for v in hits) // n)
+    return out
 
 
 def profile_window(regions: dict, out_dir: Path) -> dict:
@@ -1352,14 +1401,14 @@ def profile_window(regions: dict, out_dir: Path) -> dict:
             f"{label} {ms:.2f} ms ({ms / (total / n / 1e3):.0%})"
             for label, ms in sorted(classes.items(), key=lambda kv: -kv[1])))
         out[region] = dict(device_ms=total / n / 1e3, wall_ms=wall, classes=classes,
-                           kernels=table[:60])
+                           kernels=table[:60], hand_written=hand_written(by_name, n))
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
-                    help="directory for result.json and profile.txt")
+                    help="directory for result.json, profile.txt and build.txt")
     out_dir = ap.parse_args().out
     try:
         import torch
@@ -1394,10 +1443,17 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _cuda.build_all()
     build_s = time.perf_counter() - t0
+    (out_dir / "build.txt").write_text("\n".join(f"--- {k}\n{v}" for k, v in report.items()))
     for name, text in report.items():
-        lines = [ln.strip() for ln in text.splitlines() if "registers" in ln or "smem" in ln]
-        log(f"  {name}: " + ("; ".join(lines[-4:]) if lines else text.strip()[:200]))
+        lines = [ln.strip() for ln in text.splitlines()
+                 if "registers" in ln or "smem" in ln or "spill" in ln or "wgmma" in ln]
+        log(f"  {name}: " + ("; ".join(lines[-8:]) if lines else text.strip()[:200]))
     log(f"[2] kernels built in {build_s:.1f} s")
+    from hoig_torch.ops import attn_fused as af
+
+    tiling = af.kernel_tiling()
+    check(tiling == af.TILING, f"attn_fused.cu's tile constants {tiling} != TILING {af.TILING}")
+    log(f"  attn_fused tile constants agree with hoig_torch/ops/attn_fused.py: {tiling}")
 
     # 3. main path once, counters from 0, kernel inputs recorded
     t0 = time.perf_counter()
@@ -1456,6 +1512,16 @@ def main() -> int:
         region = "hoig_serve_fused" if path == "serving" else "hoig_train_fused"
         fused[path]["device_ms"] = profile.get(region, {}).get("device_ms")
     del fused_regions
+    # dG is built once per backward (by bwd-a-gsrc's entry point), and dW runs
+    # on the tensor cores: one launch each per attention layer
+    hw = profile.get("hoig_train_fused", {}).get("hand_written")
+    if hw is None:
+        log("  profiler: the fused step's launches by kernel not measured")
+    else:
+        got = {k: hw.get(k, {}).get("count", 0) for k in ("dg_kernel", "dw_tc_kernel", "dw_kernel")}
+        log(f"  profiler hoig_train_fused: launches per step {got}")
+        check(got == {"dg_kernel": 9, "dw_tc_kernel": 9, "dw_kernel": 0},
+              f"fused step launches by kernel {got}")
 
     # 9. report
     kernels = []

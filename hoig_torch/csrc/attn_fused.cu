@@ -14,9 +14,11 @@
 //
 // Replaces hoig_tpu/ops/attn_pallas.py (Pallas, TPU): `_fwd_kernel`,
 // `_bwd_c_kernel`, `_bwd_a_gsrc_kernel` and `_bwd_a_dw_kernel`, one C entry
-// point each. The TPU kernels kept a row band of the frame with its halo in
-// VMEM (tens of MB) and walked the grid in order, carrying dW and g_attn in
-// revisited output blocks. A Hopper block has 227 KB of shared memory and
+// point each and a second one on the tensor cores for bf16 inputs where
+// the kernel's product is large (fwd, bwd_a_gsrc, bwd_a_dw). The TPU
+// kernels kept a row band of the frame with its halo in VMEM (tens of MB)
+// and walked the grid in order, carrying dW and g_attn in revisited output
+// blocks. A Hopper block has 227 KB of shared memory and
 // blocks run in no order, so each entry point here runs a few simple kernels
 // in sequence on the stream, with scratch the wrapper allocates:
 //
@@ -37,29 +39,33 @@
 //     fold_kernel folds the edge margins onto the border pixels and divides
 //     by 25.
 //   * bwd_a_gsrc: dg_kernel writes dG[q] = sum_e (ay ax g_acc)[q - e] on the
-//     halo; the transposed form of the 5x5 product projects dG back through
-//     W_t^T onto the padded frame (conv5_tc_kernel for bf16 weights, entry
-//     point hoig_attn_fused_bwd_a_gsrc_tc; conv5_kernel for f32 ones);
-//     fold_kernel folds the margins.
-//   * bwd_a_dw: dg_kernel, then dw_kernel: one block per (offset, 64-channel
-//     tile, slice of the pixels) sums src[m] (x) dG[m - t] over its slice
-//     into a partial, and slice_sum_kernel adds the slices in order. No float
-//     atomics: every run gives the same bits.
+//     halo, an output of its own that bwd_a_dw then takes (dG is built once
+//     per backward); the transposed form of the 5x5 product projects dG
+//     back through W_t^T onto the padded frame (conv5_tc_kernel for bf16
+//     weights, entry point hoig_attn_fused_bwd_a_gsrc_tc; conv5_kernel for
+//     f32 ones); fold_kernel folds the margins.
+//   * bwd_a_dw: dW_t = sum_q src_pad[q + 2 + t] (x) dG[q] from the source
+//     and dG. bf16 source: dw_tc_kernel on the tensor cores (entry point
+//     hoig_attn_fused_bwd_a_dw_tc; its own note below). f32 source:
+//     dw_kernel, one block per (offset, 64-channel tile, slice of the
+//     pixels) summing src[m] (x) dG[m - t] over its slice into a partial.
+//     Both add the slices' partials in order with slice_sum_kernel. No
+//     float atomics: every run gives the same bits.
 //
 // What bounds them on an H100 (at the attention's shapes, C = 128..512 over
 // 128^2..32^2 pixels, batch 4): the three 5x5 products (G, the gsrc
 // projection, dW) are 2 * 25 * C * 128 operations per pixel of the (H+6) x
 // (W+6) frame, far above the card's operations-per-byte line, so all four
-// entry points are bound by arithmetic. Under bf16, G and the gsrc
-// projection run on the tensor cores (conv5_tc_kernel, wgmma with bf16
-// operands and f32 accumulators: 8x8-pixel tiles, two per block sharing
-// each offset's weight tile, the A operand read in place from a staged
-// 12x12 window, split-K over the offsets where the frame has few tiles; its
-// own note below), the gsrc projection as three passes over dG split into
-// hi + mid + lo bf16 parts, exact, so that it takes JAX's f32 products. dW,
-// and both products for f32 inputs, run as FP32 fused multiply-adds on the
-// CUDA cores, register-blocked 4 x 8 with operands from shared memory (a
-// bf16 source widened to f32 there). Everything else (the coefficient
+// entry points are bound by arithmetic. Under bf16 all three run on the
+// tensor cores (wgmma with bf16 operands and f32 accumulators): G and the
+// gsrc projection in conv5_tc_kernel (8x8-pixel tiles, two per block
+// sharing each offset's weight tile, the A operand read in place from a
+// staged 12x12 window, split-K over the offsets where the frame has few
+// tiles; its own note below), dW in dw_tc_kernel; the gsrc projection and
+// dW as three passes over dG split into hi + mid + lo bf16 parts, exact, so
+// that they take JAX's f32 products. For f32 inputs the three products run
+// as FP32 fused multiply-adds on the CUDA cores, register-blocked 4 x 8
+// with operands from shared memory. Everything else (the coefficient
 // terms, softmax, the 36-term combines, the folds) is a few percent of the
 // operations and reads each input about once from L2.
 //
@@ -89,9 +95,6 @@ constexpr int kNV = kNS * kNS;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPixPerBlock = 32;  // per-pixel kernels: 8 warps x 4 pixels
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // x rounded to T's precision (the product of two T values rounded in T)
 template <typename T> __device__ __forceinline__ float rnd(float x);
@@ -569,14 +572,14 @@ cudaError_t launch_dg(const float* gacc, const float* fy, const float* fx, const
 }
 
 // partial[s, t, c, f] = sum over padded pixels m of slice s of src_pad[m, c] * dG[m - 2 - t, f]
-// (array coordinates; dG zero outside its frame). Block: offset t, 64
+// (array coordinates; dG zero outside its frame), FP32 on the CUDA cores for
+// an f32 source (a bf16 one takes dw_tc_kernel). Block: offset t, 64
 // channels, one slice; thread: 4 channels x 8 hidden units.
-constexpr int kCt = 64;  // channels per dW block
+constexpr int kCt = 64;  // channels per dW block (read as TILING's dw_channels)
 constexpr int kMc = 32;  // pixels per staged slice
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dw_kernel(const T* __restrict__ src, const float* __restrict__ dg, float* __restrict__ part,
+dw_kernel(const float* __restrict__ src, const float* __restrict__ dg, float* __restrict__ part,
           int h, int w, int c, long long n_pos, long long per_slice) {
   __shared__ float ss[kMc][kCt + 1];
   __shared__ float ds[kMc][kF + 1];
@@ -624,7 +627,7 @@ dw_kernel(const T* __restrict__ src, const float* __restrict__ dg, float* __rest
       const int mm = i / kCt;
       const int cc = i - mm * kCt;
       const long long so = src_off[mm];
-      ss[mm][cc] = (so >= 0 && c0 + cc < c) ? to_f32(src[so + c0 + cc]) : 0.f;
+      ss[mm][cc] = (so >= 0 && c0 + cc < c) ? src[so + c0 + cc] : 0.f;
     }
     for (int i = tid; i < kMc * kF; i += kThreads) {
       const int mm = i / kF;
@@ -731,8 +734,8 @@ bool bad_dims(int b, int h, int w, int c) {
 // TFLOP/s. Each 16 KB B tile feeds 2 x 64 rows, 128 operations per byte read
 // from L2, so the B stream from L2 and the per-offset synchronisation, not
 // the tensor cores, bound this first version.
-// kT, kTcWG and kTcN are counted again by hoig_torch/ops/attn_fused.py::_tc_splits
-// (_TC_TILE, _TC_N), which picks the split-K factor and sizes the partials
+// kT, kTcWG and kTcN are read by hoig_torch/ops/attn_fused.py (TILING,
+// hoig_attn_fused_tiling) to pick the split-K factor and size the partials
 constexpr int kTcWG = 2;                        // warpgroups per block
 constexpr int kTcThreads = 128 * kTcWG;
 constexpr int kTcKs = 64;                       // reduction slice staged per pass over the offsets
@@ -788,9 +791,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d = A (64 x 16, K-major) B (16 x 128; MN-major if kTnspB, else K-major)
-// + (accumulate ? d : 0), f32
-template <int kTnspB>
+// d = A (64 x 16) B (16 x 128) + (accumulate ? d : 0), f32; each operand
+// MN-major if its kTnsp bit is set, else K-major
+template <int kTnspA, int kTnspB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                                  int accumulate) {
   asm volatile(
@@ -807,7 +810,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -817,7 +820,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspB));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspA), "n"(kTnspB));
 }
 
 // x == hi + mid + lo exactly, each part a bf16 (its 16 bits returned): hi
@@ -834,6 +837,39 @@ __device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& mid, uin
   hi = hb >> 16;
   mid = mb >> 16;
   lo = __float_as_uint(r2) >> 16;
+}
+
+// 8 consecutive f32 values (a, then b) as three 16-byte units of bf16, the
+// hi, mid and lo parts of each (split3), element 0 in the low half-word
+__device__ __forceinline__ void split3_unit(float4 a, float4 b, uint4 (&u)[3]) {
+  const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t part[3][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t h0, m0, l0, h1, m1, l1;
+    split3(f[2 * e], h0, m0, l0);
+    split3(f[2 * e + 1], h1, m1, l1);
+    part[0][e] = h0 | (h1 << 16);
+    part[1][e] = m0 | (m1 << 16);
+    part[2][e] = l0 | (l1 << 16);
+  }
+#pragma unroll
+  for (int pt = 0; pt < 3; ++pt) {
+    u[pt] = make_uint4(part[pt][0], part[pt][1], part[pt][2], part[pt][3]);
+  }
+}
+
+// the 16-byte unit of the bf16 values p[0..7] read one by one (an unaligned
+// source), those at or past `avail` zero (a channel tail)
+__device__ __forceinline__ uint4 load_bf16x8(const unsigned short* p, int avail) {
+  uint32_t wd[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t lo = 2 * e < avail ? p[2 * e] : 0u;
+    const uint32_t hi = 2 * e + 1 < avail ? p[2 * e + 1] : 0u;
+    wd[e] = lo | (hi << 16);
+  }
+  return make_uint4(wd[0], wd[1], wd[2], wd[3]);
 }
 
 struct TcTile {
@@ -932,43 +968,20 @@ conv5_tc_kernel(const void* __restrict__ xv, const __nv_bfloat16* __restrict__ w
           const int x = clampi(t.ox0 + wx + off, 0, xw - 1);
           const unsigned short* p =
               static_cast<const unsigned short*>(xv) + ((t.b * xh + y) * xw + x) * kdim + k;
-          if (vec) {
-            v = *reinterpret_cast<const uint4*>(p);
-          } else {
-            uint32_t wd[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const uint32_t lo = k + 2 * e < kdim ? p[2 * e] : 0u;
-              const uint32_t hi = k + 2 * e + 1 < kdim ? p[2 * e + 1] : 0u;
-              wd[e] = lo | (hi << 16);
-            }
-            v = make_uint4(wd[0], wd[1], wd[2], wd[3]);
-          }
+          v = vec ? *reinterpret_cast<const uint4*>(p) : load_bf16x8(p, kdim - k);
         }
         *dst = v;
       } else {
-        uint32_t part[3][4] = {};
+        uint4 u[3] = {};
         const int y = t.oy0 + wy + off;
         const int x = t.ox0 + wx + off;
         if (t.ok && y >= 0 && y < xh && x >= 0 && x < xw) {  // kdim (128) is whole slices
           const float* p = static_cast<const float*>(xv) + ((t.b * xh + y) * xw + x) * kdim + k;
-          const float4 f0 = *reinterpret_cast<const float4*>(p);
-          const float4 f1 = *reinterpret_cast<const float4*>(p + 4);
-          const float f[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            uint32_t h0, m0, l0, h1, m1, l1;
-            split3(f[2 * e], h0, m0, l0);
-            split3(f[2 * e + 1], h1, m1, l1);
-            part[0][e] = h0 | (h1 << 16);
-            part[1][e] = m0 | (m1 << 16);
-            part[2][e] = l0 | (l1 << 16);
-          }
+          const float4* p4 = reinterpret_cast<const float4*>(p);
+          split3_unit(p4[0], p4[1], u);
         }
 #pragma unroll
-        for (int pt = 0; pt < 3; ++pt) {
-          dst[pt * kTcWinUnits] = make_uint4(part[pt][0], part[pt][1], part[pt][2], part[pt][3]);
-        }
+        for (int pt = 0; pt < 3; ++pt) dst[pt * kTcWinUnits] = u[pt];
       }
     }
     stage_b(u_begin, 0, k0);
@@ -988,13 +1001,13 @@ conv5_tc_kernel(const void* __restrict__ xv, const __nv_bfloat16* __restrict__ w
       for (int kk = 0; kk < kTcKs / 16; ++kk) {
         const uint32_t a_k = a_u + 2 * kk * kTcWinPix * 16;
         if constexpr (!kTransposed) {
-          wgmma_m64n128k16<1>(d, gmma_desc(a_k, kTcWinPix * 16, kWin * 16),
+          wgmma_m64n128k16<0, 1>(d, gmma_desc(a_k, kTcWinPix * 16, kWin * 16),
                               gmma_desc(b_u + kk * 16 * 16, 8 * 16, kTcKs * 16), 1);
         } else {
           const uint64_t db = gmma_desc(b_u + 2 * kk * kTcN * 16, kTcN * 16, 8 * 16);
 #pragma unroll
           for (int pt = 0; pt < 3; ++pt) {
-            wgmma_m64n128k16<0>(
+            wgmma_m64n128k16<0, 0>(
                 d, gmma_desc(a_k + pt * kTcWinUnits * 16, kTcWinPix * 16, kWin * 16), db,
                 kk + pt > 0);
           }
@@ -1057,6 +1070,204 @@ cudaError_t launch_conv5_tc(const void* x, const void* w0s, float* out, float* p
   HOIG_TRY(cudaGetLastError());
   if (splits == 1) return cudaSuccess;
   return launch_slice_sum(part, out, (long long)b * oh * ow * ndim, splits, s);
+}
+
+// ---------------------------------------------------- dW on the tensor cores
+//
+// dw_tc_kernel: B4-bwd-a-dw for a bf16 source, the weight gradient of the
+// 5x5 correlation G = src_pad * W, as warpgroup matrix multiplies
+// (wgmma.mma_async m64n128k16, bf16 operands, f32 accumulators; sm_90a). It
+// replaces, with dw_kernel's FP32 form for f32 inputs, hoig_tpu/ops/
+// attn_pallas.py `_bwd_a_dw_kernel`. For each offset t = (ty, tx) in
+// [-2, 2]^2:
+//
+//   dW_t[c, f] = sum_q src_pad[q + 2 + t, c] dG[q, f]
+//
+// over the pixels q of the (H+6) x (W+6) frame of dG (dw_kernel's sum over
+// the padded frame less the pixels where dG is zero): a GEMM with M = C, N =
+// 128, K = B (H+6) (W+6). The source is exactly bf16. dG is f32, and is
+// split when staged into three bf16 parts with hi + mid + lo == dG exactly
+// (split3); each k-step runs three wgmma, one per part, against the same
+// source operand, so every product is exact in f32 and the three together
+// are JAX's f32 product of the widened source and dG (the Pallas kernel's
+// dot_general with preferred_element_type f32). Only the order of the f32
+// sums differs: each 64-pixel chunk's 12 wgmma start a fresh accumulator,
+// which is then added into an IEEE f32 register sum (the tensor cores' own
+// f32 sums drift over long K, as in the gsrc projection).
+//
+// Design. A block owns one offset, 128 channels (two warpgroups, 64 each,
+// sharing the staged dG) and a contiguous range of q; it streams its range
+// in chunks of 64 pixels, re-reading the shifted source rows for its
+// offset. The other design, a block per tile of q with its source window,
+// where each offset is only a descriptor's start address (conv5_tc_kernel's
+// way), would read dG once instead of 25 times from L2; but each offset
+// then needs its own 64 x 128 accumulator and promoted sum (128 registers a
+// thread), so a warpgroup could hold one offset and the window would be
+// staged again for each. Here the 25 blocks of one (channel tile, range)
+// are adjacent in the grid, run together and read the same dG chunk from
+// L2 (dG is 36.8 MB at 128^2, within the 50 MB L2), and DRAM sees dG and
+// the source about once. Both operands are MN-major (the reduction runs
+// over pixels, the outer dimension of NHWC): a 16-byte unit is 8 channels
+// (or 8 hidden units) of one pixel, so the source's units are copied as
+// they lie (cp.async) and dG's are split element by element anyway; the
+// units sit in the no-swizzle core-matrix order [8-wide column][pixel], 8
+// pixels' units of one column making a core matrix (leading byte offset
+// 128 bytes along K, stride byte offset 1 KB along M or N, as
+// conv5_tc_kernel's MN-major B tile). The next chunk is staged into a
+// second buffer while the current one's wgmma run. A thread stages one
+// pixel of the chunk, 4 of its 16 source columns and 4 of dG's. K is split
+// over contiguous ranges of q where the output tiles (25 x C/128) would
+// not fill the card (one block per SM: 128 KB of staging, 128 f32 registers
+// of accumulators a thread); slice_sum_kernel adds the partials in a fixed
+// order, so a second call gives the same bits. Channel tails (C not a
+// multiple of 8 or 128) and the q tail are zero-filled in staging.
+//
+// What bounds it on an H100: 3 x 2 x 25 x C x 128 operations per pixel of
+// the frame, 670.8 GFLOP per fused step, 0.68 ms at the tensor cores' 989
+// TFLOP/s; the bytes (the source and dG once from DRAM, dW written) are
+// under a tenth of that. In this first version the staging (the split and
+// the shared-memory stores, 64 KB per chunk) and the chunk's barrier, not
+// the tensor cores, bound it.
+// kDwPix and kDwCh are read by hoig_torch/ops/attn_fused.py (TILING,
+// hoig_attn_fused_tiling) to pick the split-K factor
+constexpr int kDwWG = 2;                                  // warpgroups per block
+constexpr int kDwThreads = 128 * kDwWG;
+constexpr int kDwM = 64;                                  // channels per warpgroup (wgmma M)
+constexpr int kDwCh = kDwWG * kDwM;                       // channels per block
+constexpr int kDwPix = 64;                                // pixels per staged chunk (K)
+constexpr int kDwCols = kDwCh / 8;                        // 16-byte columns of the source per pixel
+constexpr int kDwAUnits = kDwCols * kDwPix;               // the source chunk
+constexpr int kDwBUnits = kF / 8 * kDwPix;                // one part of the dG chunk
+constexpr int kDwStageUnits = kDwAUnits + 3 * kDwBUnits;  // 64 KB
+constexpr int kDwSmem = 2 * kDwStageUnits * 16;           // two stages
+static_assert(kDwThreads == 4 * kDwPix && kDwCols == 16 && kF / 8 == 16,
+              "a thread stages one pixel and 4 of 16 columns of each operand");
+
+__global__ void __launch_bounds__(kDwThreads, 1)
+dw_tc_kernel(const __nv_bfloat16* __restrict__ src, const float* __restrict__ dg,
+             float* __restrict__ out, int h, int w, int c, long long n_q, long long per_split,
+             int vec) {
+  extern __shared__ __align__(128) uint4 dw_smem[];  // [2][source | hi | mid | lo]
+  const int tid = threadIdx.x;
+  const int wgi = tid >> 7;
+  const int t = blockIdx.x;
+  const int ty = t / 5 - 2;
+  const int tx = t % 5 - 2;
+  const int c0 = blockIdx.y * kDwCh;
+  const long long q_begin = (long long)blockIdx.z * per_split;
+  const long long q_end = min(n_q, q_begin + per_split);
+  const int hg = h + 2 * kHalo;
+  const int wgr = w + 2 * kHalo;
+  // the pixel this thread stages (8 neighbouring pixels per quarter warp, so
+  // that a warp writes whole 128-byte rows of shared memory) and its columns
+  const int k = (tid >> 5) * 8 + (tid & 7);
+  const int col0 = (tid >> 3) & 3;  // columns col0 + 4 r, r = 0..3
+
+  auto stage = [&](long long q0, int buf) {
+    uint4* const a_s = dw_smem + buf * kDwStageUnits;
+    uint4* const b_s = a_s + kDwAUnits;
+    const long long q = q0 + k;
+    if (q >= q_end) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int col = col0 + 4 * r;
+        a_s[col * kDwPix + k] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int pt = 0; pt < 3; ++pt) {
+          b_s[pt * kDwBUnits + col * kDwPix + k] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      return;
+    }
+    const int qx = static_cast<int>(q % wgr);
+    const int qy = static_cast<int>((q / wgr) % hg);
+    const long long bb = q / ((long long)hg * wgr);
+    // src_pad[q + 2 + t] is src[q + t - 3], clamped to the frame
+    const int sy = clampi(qy + ty - kHalo, 0, h - 1);
+    const int sx = clampi(qx + tx - kHalo, 0, w - 1);
+    const __nv_bfloat16* sp = src + ((bb * h + sy) * w + sx) * c;
+    const float* gp = dg + q * kF;
+    float4 g[4][2];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      g[r][0] = *reinterpret_cast<const float4*>(gp + 8 * (col0 + 4 * r));
+      g[r][1] = *reinterpret_cast<const float4*>(gp + 8 * (col0 + 4 * r) + 4);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int col = col0 + 4 * r;
+      const int ch = c0 + 8 * col;
+      uint4* dst = a_s + col * kDwPix + k;
+      if (vec) {
+        cp_async16(smem_u32(dst), ch < c ? sp + ch : src, ch < c ? 16 : 0);
+      } else {
+        *dst = load_bf16x8(reinterpret_cast<const unsigned short*>(sp) + ch, c - ch);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      uint4 u[3];
+      split3_unit(g[r][0], g[r][1], u);
+#pragma unroll
+      for (int pt = 0; pt < 3; ++pt) b_s[pt * kDwBUnits + (col0 + 4 * r) * kDwPix + k] = u[pt];
+    }
+  };
+
+  float d[64];
+  float sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = sum[i] = 0.f;
+  const uint32_t base = smem_u32(dw_smem);
+  const long long n_chunks = q_end > q_begin ? (q_end - q_begin + kDwPix - 1) / kDwPix : 0;
+  if (n_chunks > 0) stage(q_begin, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+  for (long long i = 0; i < n_chunks; ++i) {
+    const int buf = static_cast<int>(i & 1);
+    const uint32_t a_u = base + (buf * kDwStageUnits + wgi * (kDwM / 8) * kDwPix) * 16;
+    const uint32_t b_u = base + (buf * kDwStageUnits + kDwAUnits) * 16;
+    wgmma_fence();
+    fence_acc(d);
+#pragma unroll
+    for (int kk = 0; kk < kDwPix / 16; ++kk) {
+      const uint64_t da = gmma_desc(a_u + kk * 16 * 16, 8 * 16, kDwPix * 16);
+#pragma unroll
+      for (int pt = 0; pt < 3; ++pt) {
+        wgmma_m64n128k16<1, 1>(d, da, gmma_desc(b_u + (pt * kDwBUnits + kk * 16) * 16, 8 * 16,
+                                                kDwPix * 16),
+                               kk + pt > 0);
+      }
+    }
+    wgmma_commit();
+    // the next chunk into the other stage while the tensor cores run
+    if (i + 1 < n_chunks) stage(q_begin + (i + 1) * kDwPix, buf ^ 1);
+    cp_async_commit();
+    wgmma_wait_all();
+    fence_acc(d);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) sum[j] = __fadd_rn(sum[j], d[j]);
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // the next stage is in place; this one's readers are done
+  }
+
+  // accumulator layout of m64nNk16: thread (warp w, lane l) holds rows
+  // (channels) 16 w + l / 4 (+ 8) and columns (hidden units) 8 j + 2 (l % 4) (+ 1)
+  const int warp = (tid & 127) >> 5;
+  const int lane = tid & 31;
+  float* dst = out + ((long long)blockIdx.z * kK2 + t) * c * kF;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int ch = c0 + wgi * kDwM + 16 * warp + 8 * half + (lane >> 2);
+    if (ch >= c) continue;
+    float* row = dst + (long long)ch * kF;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      store_pair(row + 8 * j + 2 * (lane & 3), sum[4 * j + 2 * half], sum[4 * j + 2 * half + 1]);
+    }
+  }
 }
 
 // phases A-tail, B and C from G
@@ -1146,22 +1357,37 @@ int bwd_a_gsrc_tc(const void* gacc, const void* fy, const void* fx, const void* 
   return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, 0, s);
 }
 
-template <typename T>
-int bwd_a_dw(const void* src, const void* gacc, const void* fy, const void* fx, const void* wy,
-             const void* wx, void* dw, void* dg, void* part, int b, int h, int w, int c,
+// f32 source: dW as FP32
+int bwd_a_dw(const void* src, const void* dg, void* dw, void* part, int b, int h, int w, int c,
              int slices, cudaStream_t s) {
-  float* dg_ = static_cast<float*>(dg);
   float* part_ = static_cast<float*>(part);
-  HOIG_TRY(launch_dg(static_cast<const float*>(gacc), static_cast<const float*>(fy),
-                     static_cast<const float*>(fx), static_cast<const float*>(wy),
-                     static_cast<const float*>(wx), dg_, b, h, w, s));
   const long long n_pos = (long long)b * (h + 2 * kPad) * (w + 2 * kPad);
   const long long per_slice = ((n_pos + slices - 1) / slices + kMc - 1) / kMc * kMc;
   const dim3 grid(kK2, (c + kCt - 1) / kCt, slices);
-  dw_kernel<T><<<grid, kThreads, 0, s>>>(static_cast<const T*>(src), dg_, part_, h, w, c, n_pos,
-                                         per_slice);
+  dw_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(src), static_cast<const float*>(dg),
+                                      part_, h, w, c, n_pos, per_slice);
   HOIG_TRY(cudaGetLastError());
   return launch_slice_sum(part_, static_cast<float*>(dw), (long long)kK2 * c * kF, slices, s);
+}
+
+// bf16 source: dW on the tensor cores, into dw (splits == 1) or into splits
+// partials in part that slice_sum_kernel then adds into dw
+int bwd_a_dw_tc(const void* src, const void* dg, void* dw, void* part, int b, int h, int w, int c,
+                int splits, cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(dg) % 16 != 0) return cudaErrorInvalidValue;
+  HOIG_TRY(
+      cudaFuncSetAttribute(dw_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem));
+  const long long n_q = (long long)b * (h + 2 * kHalo) * (w + 2 * kHalo);
+  const long long per_split = ((n_q + splits - 1) / splits + kDwPix - 1) / kDwPix * kDwPix;
+  const int vec = c % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  const dim3 grid(kK2, (c + kDwCh - 1) / kDwCh, splits);
+  float* out = static_cast<float*>(splits > 1 ? part : dw);
+  dw_tc_kernel<<<grid, kDwThreads, kDwSmem, s>>>(static_cast<const __nv_bfloat16*>(src),
+                                                 static_cast<const float*>(dg), out, h, w, c, n_q,
+                                                 per_split, vec);
+  HOIG_TRY(cudaGetLastError());
+  if (splits == 1) return cudaSuccess;
+  return launch_slice_sum(out, static_cast<float*>(dw), (long long)kK2 * c * kF, splits, s);
 }
 
 }  // namespace
@@ -1224,16 +1450,34 @@ extern "C" int hoig_attn_fused_bwd_a_gsrc_tc(const void* gacc, const void* fy, c
                        static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int hoig_attn_fused_bwd_a_dw(const void* src, const void* gacc, const void* fy,
-                                        const void* fx, const void* wy, const void* wx, void* dw,
-                                        void* dg, void* part, int b, int h, int w, int c,
-                                        int slices, int is_bf16, void* stream) {
-  if (bad_dims(b, h, w, c) || slices < 1 || slices > 65535) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return bwd_a_dw<__nv_bfloat16>(src, gacc, fy, fx, wy, wx, dw, dg, part, b, h, w, c, slices, s);
-  }
-  return bwd_a_dw<float>(src, gacc, fy, fx, wy, wx, dw, dg, part, b, h, w, c, slices, s);
+// f32 only: a bf16 source takes hoig_attn_fused_bwd_a_dw_tc. dg: the
+// (B, H+6, W+6, 128) f32 dG that hoig_attn_fused_bwd_a_gsrc(_tc) wrote;
+// part: slices x (25, C, 128) f32
+extern "C" int hoig_attn_fused_bwd_a_dw(const void* src, const void* dg, void* dw, void* part,
+                                        int b, int h, int w, int c, int slices, int is_bf16,
+                                        void* stream) {
+  if (bad_dims(b, h, w, c) || is_bf16 || slices < 1 || slices > 65535) return cudaErrorInvalidValue;
+  return bwd_a_dw(src, dg, dw, part, b, h, w, c, slices, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 source only: dW on the tensor cores (dw_tc_kernel, dG split in
+// three); part: splits x (25, C, 128) f32 when splits > 1
+extern "C" int hoig_attn_fused_bwd_a_dw_tc(const void* src, const void* dg, void* dw, void* part,
+                                           int b, int h, int w, int c, int splits, void* stream) {
+  if (bad_dims(b, h, w, c) || splits < 1 || splits > 65535) return cudaErrorInvalidValue;
+  return bwd_a_dw_tc(src, dg, dw, part, b, h, w, c, splits, static_cast<cudaStream_t>(stream));
+}
+
+// The tile constants that hoig_torch/ops/attn_fused.py repeats (TILING) to
+// pick its split-K factors, in TILING's order: conv5_tc_kernel's tile edge,
+// tiles per block and outputs per block; dw_tc_kernel's pixels per chunk and
+// channels per block; dw_kernel's channels per block. Writes at most n of
+// them to out and returns how many there are.
+extern "C" int hoig_attn_fused_tiling(int* out, int n) {
+  const int v[] = {kT, kTcWG, kTcN, kDwPix, kDwCh, kCt};
+  constexpr int kCount = sizeof(v) / sizeof(v[0]);
+  for (int i = 0; i < n && i < kCount; ++i) out[i] = v[i];
+  return kCount;
 }
 
 extern "C" const char* hoig_error_string(int err) {

@@ -16,23 +16,28 @@ src_pad the source edge-padded by PAD = 5. `flow_attention_fused` is the
 autograd Function `FlowAttentionFused`: its forward keeps acc and attn as
 residuals; its backward runs the phase-C backward (`attn_fused_bwd_c`),
 phase B's backward in plain tensor code (as the JAX package does), then the
-phase-A backward (`attn_fused_bwd_a_gsrc`, `attn_fused_bwd_a_dw`).
+phase-A backward: `attn_fused_bwd_a_gsrc` builds dG, the gradient of G on
+the +-3 halo, projects it onto the source and returns it, and
+`attn_fused_bwd_a_dw` takes that dG for dW (dG is built once per backward;
+the two TPU kernels each built their own).
 
 Each of the four wrappers runs its plain PyTorch version (`*_reference`)
 for CPU tensors and, for CUDA tensors, launches its entry point of
-csrc/attn_fused.cu or raises. B4-fwd and B4-bwd-a-gsrc have two entry
-points each, chosen by dtype: bf16 runs their 5x5 product on the tensor
-cores (`hoig_attn_fused_fwd_tc`, `hoig_attn_fused_bwd_a_gsrc_tc`, counted as
-`attn_fused_fwd_tc` and `attn_fused_bwd_a_gsrc_tc`), f32 as FP32 on the CUDA
-cores (`hoig_attn_fused_fwd`, `hoig_attn_fused_bwd_a_gsrc`, counted under
-their own names). The gsrc projection's tensor-core form splits the f32 dG
-into three bf16 parts (`split_bf16x3`) whose products with the bf16 weights
-are exact in f32. The plain versions follow the TPU kernels'
+csrc/attn_fused.cu or raises. B4-fwd, B4-bwd-a-gsrc and B4-bwd-a-dw have
+two entry points each, chosen by dtype: bf16 runs their 5x5 product on the
+tensor cores (`hoig_attn_fused_fwd_tc`, `hoig_attn_fused_bwd_a_gsrc_tc`,
+`hoig_attn_fused_bwd_a_dw_tc`, counted as `attn_fused_fwd_tc`,
+`attn_fused_bwd_a_gsrc_tc` and `attn_fused_bwd_a_dw_tc`), f32 as FP32 on
+the CUDA cores (`hoig_attn_fused_fwd`, `hoig_attn_fused_bwd_a_gsrc`,
+`hoig_attn_fused_bwd_a_dw`, counted under their own names). The gsrc
+projection's and dW's tensor-core forms split the f32 dG into three bf16
+parts (`split_bf16x3`) whose products with the bf16 weights or source are
+exact in f32. The plain versions follow the TPU kernels'
 precision: phase-A products from the input dtype with f32 sums; the
 coefficient fields, the residuals and the softmax in f32; the phase-C and
 bwd-c products in the source dtype (rounded there, as bf16 * bf16 is in
 JAX) with f32 sums; one cast at the end. Their elementwise parts (the
-coefficient fields, the V build, every weighted-shift sum, the margin
+coefficient fields, the V build, every weighted-shift sum, dG, the margin
 folds) fix an order of summation that the CUDA kernels repeat; only the
 channel reductions (G, the logits, the g_attn dots, the gsrc_a projection
 and dW) are summed in another order on the card.
@@ -67,22 +72,28 @@ _NE = EY_HI - EY_LO + 1  # 7 coefficient shifts per axis
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # fwd: src, acc0, w0s, w1, b1, fy, fx, wy, wx, out, acc, attn, g_scratch, b, h, w, c, bf16, stream
-# (fwd and bwd_a_gsrc refuse bf16 = 1: bf16 takes their _tc entry points)
+# (fwd, bwd_a_gsrc and bwd_a_dw refuse bf16 = 1: bf16 takes their _tc entry points)
 _FWD_ARGS = [_P] * 13 + [_I] * 5 + [_P]
 # bwd_c: src, fy, fx, wy, wx, attn, g_out, gsrc, g_attn, v_scratch, pad_scratch, b, h, w, c, bf16, stream
 _BWD_C_ARGS = [_P] * 11 + [_I] * 5 + [_P]
 # fwd_tc: as fwd with part_scratch after g_scratch, and splits in place of bf16
 _FWD_TC_ARGS = [_P] * 14 + [_I] * 5 + [_P]
-# bwd_a_gsrc: g_acc, fy, fx, wy, wx, w0s, gsrc, dg_scratch, pad_scratch, b, h, w, c, bf16, stream
+# bwd_a_gsrc: g_acc, fy, fx, wy, wx, w0s, gsrc, dg, pad_scratch, b, h, w, c, bf16, stream
 _BWD_A_GSRC_ARGS = [_P] * 9 + [_I] * 5 + [_P]
 # bwd_a_gsrc_tc: as bwd_a_gsrc with part_scratch after pad_scratch, and splits in place of bf16
 _BWD_A_GSRC_TC_ARGS = [_P] * 10 + [_I] * 5 + [_P]
-# bwd_a_dw: src, g_acc, fy, fx, wy, wx, dw, dg_scratch, part_scratch, b, h, w, c, slices, bf16, stream
-_BWD_A_DW_ARGS = [_P] * 9 + [_I] * 6 + [_P]
-_SMS = 132  # the H100's SMs: the split-K factors aim at two blocks on each
-# conv5_tc_kernel's tiling (attn_fused.cu: kT, kTcWG, kTcN), as _tc_splits counts it
-_TC_TILE = 8  # output tiles of 8 x 8 pixels, two per block
-_TC_N = 128  # and 128 outputs wide
+# bwd_a_dw: src, dg, dw, part_scratch, b, h, w, c, slices, bf16, stream
+_BWD_A_DW_ARGS = [_P] * 4 + [_I] * 6 + [_P]
+# bwd_a_dw_tc: src, dg, dw, part_scratch, b, h, w, c, splits, stream
+_BWD_A_DW_TC_ARGS = [_P] * 4 + [_I] * 5 + [_P]
+_SMS = 132  # the H100's SMs: the split-K factors aim at filling them
+# the kernels' tile constants that the split-K factors count, in the order
+# in which attn_fused.cu's hoig_attn_fused_tiling reports them (chip_smoke.py
+# holds this copy against it): conv5_tc_kernel's output tiles of 8 x 8
+# pixels, two per block, 128 outputs wide; dw_tc_kernel's chunks of 64
+# pixels and 128 channels per block; dw_kernel's 64 channels per block
+TILING = dict(tc_tile=8, tc_tiles_per_block=2, tc_n=128, dw_tc_pixels=64, dw_tc_channels=128,
+              dw_channels=64)
 
 
 def _offsets():
@@ -279,19 +290,20 @@ def _dg_reference(g_acc, ay, ax):
 
 @torch.no_grad()
 def attn_fused_bwd_a_gsrc_reference(g_acc, fy_rel, fx_rel, wy, wx, w0s):
-    """B4-bwd-a-gsrc, plain: the fc_0 half of the source gradient, f32."""
+    """B4-bwd-a-gsrc, plain: (the fc_0 half of the source gradient
+    (B, H, W, C) f32, dG (B, H+6, W+6, 128) f32, which dW takes)."""
     dg = _dg_reference(g_acc, *coeff_axes(fy_rel, fx_rel, wy, wx))
     gpad = _nhwc(F_.conv_transpose2d(_nchw(dg), _conv_weight(w0s)))  # (B, H+10, W+10, C)
-    return _fold_edges(gpad)
+    return _fold_edges(gpad), dg
 
 
 @torch.no_grad()
-def attn_fused_bwd_a_dw_reference(src, g_acc, fy_rel, fx_rel, wy, wx):
+def attn_fused_bwd_a_dw_reference(src, dg):
     """B4-bwd-a-dw, plain: dW_t = sum over every padded pixel m of the batch
-    of src_pad[m] (x) dG[m - t], (25, C, 128) f32."""
+    of src_pad[m] (x) dG[m - 2 - t], (25, C, 128) f32, from the source and
+    the dG of attn_fused_bwd_a_gsrc."""
     b, h, w, c = src.shape
-    dg = _dg_reference(g_acc, *coeff_axes(fy_rel, fx_rel, wy, wx))
-    # dG read at m - t on the padded frame: zero-extend the halo frame by 4
+    # dG read at m - 2 - t on the padded frame: zero-extend the halo frame by 4
     dgp = F_.pad(dg, (0, 0, 4, 4, 4, 4))
     src_m = edge_pad(src, PAD).float().reshape(-1, c).t()
     hp, wp = h + 2 * PAD, w + 2 * PAD
@@ -330,7 +342,7 @@ def _shapes(b, h, w, c) -> dict:
     pix = (b, h, w)
     return dict(src=(b, h, w, c), acc0=(b, h, w, F), w0s=(K2, c, F), w1=(F, K2), b1=(1, K2),
                 fy=pix, fx=pix, wy=pix, wx=pix, attn=(b, h, w, K2), g_out=(b, h, w, c),
-                g_acc=(b, h, w, F))
+                g_acc=(b, h, w, F), dg=(b, h + 2 * HALO, w + 2 * HALO, F))
 
 
 def _launch(symbol: str, count_as: str, argtypes, args) -> None:
@@ -343,16 +355,46 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
+def kernel_tiling() -> dict:
+    """The tile constants as the built attn_fused library reports them
+    (`hoig_attn_fused_tiling`), under TILING's keys. Needs the card's build."""
+    fn = _cuda.kernel("attn_fused", "hoig_attn_fused_tiling",
+                      [ctypes.POINTER(ctypes.c_int), ctypes.c_int])
+    buf = (ctypes.c_int * len(TILING))()
+    n = fn(buf, len(TILING))
+    if n != len(TILING):
+        raise RuntimeError(f"attn_fused reports {n} tile constants, TILING has {len(TILING)}")
+    return dict(zip(TILING, buf))
+
+
 def _tc_splits(b: int, oh: int, ow: int, n: int) -> int:
     """Split-K factor of a tensor-core 5x5 product over an (oh, ow) frame
     with n outputs: contiguous ranges of the 25 offsets, enough that about
     two blocks run on each SM (at most 25); a second pass adds the partials
-    in order (no float atomics). The tiling it counts (_TC_TILE, _TC_N, two
-    tiles per block) is conv5_tc_kernel's in attn_fused.cu (kT, kTcN,
-    kTcWG); if they part, only the speed suffers."""
-    tiles = b * -(-oh // _TC_TILE) * -(-ow // _TC_TILE)
-    blocks = -(-tiles // 2) * -(-n // _TC_N)
+    in order (no float atomics). It counts conv5_tc_kernel's tiling
+    (TILING); if the copy parts from the kernel's, only the speed suffers."""
+    edge, n_t = TILING["tc_tile"], TILING["tc_n"]
+    tiles = b * -(-oh // edge) * -(-ow // edge)
+    blocks = -(-tiles // TILING["tc_tiles_per_block"]) * -(-n // n_t)
     return max(1, min(K2, -(-2 * _SMS // blocks)))
+
+
+def _dw_tc_splits(b: int, h: int, w: int, c: int) -> int:
+    """Split-K factor of the tensor-core dW: contiguous ranges of the pixels
+    of the (H+6) x (W+6) frame. dw_tc_kernel runs one block per SM, so the
+    factor is the smallest whose 25 x ceil(C/128) x splits blocks fill at
+    least 90% of their last wave on the card, or else the one that fills it
+    best; each range keeps at least 16 chunks of 64 pixels (at most 32
+    ranges). A second pass adds the partials in order (no float atomics).
+    It counts dw_tc_kernel's tiling (TILING)."""
+    tiles = K2 * -(-c // TILING["dw_tc_channels"])
+    chunks = -(-(b * (h + 2 * HALO) * (w + 2 * HALO)) // TILING["dw_tc_pixels"])
+    choices = range(1, max(1, min(32, chunks // 16)) + 1)
+
+    def fill(s):
+        return tiles * s / (_SMS * -(-tiles * s // _SMS))
+
+    return next((s for s in choices if fill(s) >= 0.9), max(choices, key=fill))
 
 
 def attn_fused_fwd(src, acc0, w0s, w1, b1, fy_rel, fx_rel, wy, wx):
@@ -401,9 +443,10 @@ def attn_fused_bwd_c(src, fy_rel, fx_rel, wy, wx, attn, g_out):
 
 
 def attn_fused_bwd_a_gsrc(g_acc, fy_rel, fx_rel, wy, wx, w0s):
-    """B4-bwd-a-gsrc: the fc_0 half of the source gradient (B, H, W, C) f32.
-    bf16 weights run the projection on the tensor cores (dG split in three),
-    f32 ones as FP32."""
+    """B4-bwd-a-gsrc: (the fc_0 half of the source gradient (B, H, W, C)
+    f32, dG (B, H+6, W+6, 128) f32 for attn_fused_bwd_a_dw). bf16 weights
+    run the projection on the tensor cores (dG split in three), f32 ones as
+    FP32."""
     if g_acc.device.type == "cpu":
         return attn_fused_bwd_a_gsrc_reference(g_acc, fy_rel, fx_rel, wy, wx, w0s)
     b, h, w, _ = g_acc.shape
@@ -424,32 +467,38 @@ def attn_fused_bwd_a_gsrc(g_acc, fy_rel, fx_rel, wy, wx, w0s):
     else:
         _launch("hoig_attn_fused_bwd_a_gsrc", "attn_fused_bwd_a_gsrc", _BWD_A_GSRC_ARGS,
                 ptrs + [b, h, w, c, 0])
-    return gsrc
+    return gsrc, dg
 
 
 def _dw_slices(c: int) -> int:
-    """Slices of the pixel sum of dW: each of the 25 * ceil(C/64) output tiles
-    is split so that about two blocks run on each SM; a second pass adds the
-    slices in order (no float atomics)."""
-    tiles = K2 * (-(-c // 64))
+    """Slices of the pixel sum of the FP32 dW: each of the 25 * ceil(C/64)
+    output tiles (TILING's dw_channels) is split so that about two blocks
+    run on each SM; a second pass adds the slices in order (no float
+    atomics)."""
+    tiles = K2 * (-(-c // TILING["dw_channels"]))
     return max(1, min(32, -(-2 * _SMS // tiles)))
 
 
-def attn_fused_bwd_a_dw(src, g_acc, fy_rel, fx_rel, wy, wx):
-    """B4-bwd-a-dw: dW (25, C, 128) f32."""
+def attn_fused_bwd_a_dw(src, dg):
+    """B4-bwd-a-dw: dW (25, C, 128) f32 from the source and the dG that
+    attn_fused_bwd_a_gsrc returned. A bf16 source runs the product on the
+    tensor cores (dG split in three), an f32 one as FP32."""
     if src.device.type == "cpu":
-        return attn_fused_bwd_a_dw_reference(src, g_acc, fy_rel, fx_rel, wy, wx)
+        return attn_fused_bwd_a_dw_reference(src, dg)
     b, h, w, c = src.shape
-    _check("attn_fused_bwd_a_dw", dict(src=src, g_acc=g_acc, fy=fy_rel, fx=fx_rel, wy=wy,
-                                       wx=wx), src.dtype, _shapes(b, h, w, c))
+    _check("attn_fused_bwd_a_dw", dict(src=src, dg=dg), src.dtype, _shapes(b, h, w, c))
     f32 = dict(dtype=torch.float32, device=src.device)
-    slices = _dw_slices(c)
     dw = torch.empty((K2, c, F), **f32)
-    dg = torch.empty((b, h + 2 * HALO, w + 2 * HALO, F), **f32)
-    part = torch.empty((slices, K2, c, F), **f32)
-    _launch("hoig_attn_fused_bwd_a_dw", "attn_fused_bwd_a_dw", _BWD_A_DW_ARGS,
-            _ptrs(src, g_acc, fy_rel, fx_rel, wy, wx, dw, dg, part)
-            + [b, h, w, c, slices, int(src.dtype == torch.bfloat16)])
+    if src.dtype == torch.bfloat16:
+        splits = _dw_tc_splits(b, h, w, c)
+        part = torch.empty((splits, K2, c, F), **f32) if splits > 1 else dw
+        _launch("hoig_attn_fused_bwd_a_dw_tc", "attn_fused_bwd_a_dw_tc", _BWD_A_DW_TC_ARGS,
+                _ptrs(src, dg, dw, part) + [b, h, w, c, splits])
+    else:
+        slices = _dw_slices(c)
+        part = torch.empty((slices, K2, c, F), **f32)
+        _launch("hoig_attn_fused_bwd_a_dw", "attn_fused_bwd_a_dw", _BWD_A_DW_ARGS,
+                _ptrs(src, dg, dw, part) + [b, h, w, c, slices, 0])
     return dw
 
 
@@ -479,8 +528,8 @@ class FlowAttentionFused(torch.autograd.Function):
         g_w1 = torch.einsum("bhwf,bhwk->fk", hdn, g_logits)
         g_b1 = g_logits.sum(dim=(0, 1, 2))[None]
         g_acc = torch.where(acc >= 0, g_hdn, 0.01 * g_hdn).contiguous()
-        gsrc_a = attn_fused_bwd_a_gsrc(g_acc, *fields, w0s)
-        dw = attn_fused_bwd_a_dw(src, g_acc, *fields)
+        gsrc_a, dg = attn_fused_bwd_a_gsrc(g_acc, *fields, w0s)
+        dw = attn_fused_bwd_a_dw(src, dg)
         return ((gsrc_c + gsrc_a).to(src.dtype), g_acc, dw.to(w0s.dtype), g_w1.to(w1.dtype),
                 g_b1.float(), None, None, None, None)
 

@@ -56,8 +56,9 @@ def test_plain_versions_match_jax_kernels(kernel):
     else:
         g_acc = jnp.asarray(rng.randn(b, h, w, af.F), jnp.float32)
         ref = ap._bwd_a_call(src, w0s, *fields, g_acc, interpret=True)
-        got = (af.attn_fused_bwd_a_gsrc(T(g_acc), *tfields, T(w0s)),
-               af.attn_fused_bwd_a_dw(T(src), T(g_acc), *tfields))
+        # dW takes the dG that the gsrc step built
+        gsrc_a, dg = af.attn_fused_bwd_a_gsrc(T(g_acc), *tfields, T(w0s))
+        got = (gsrc_a, af.attn_fused_bwd_a_dw(T(src), dg))
         tol = 2e-4
     assert len(got) == len(ref)
     for i, (a, r) in enumerate(zip(got, ref)):
@@ -165,7 +166,7 @@ def test_device_tensors_go_to_the_kernel(kernel, monkeypatch):
         "bwd_c": lambda: af.attn_fused_bwd_c(src, *fields, meta(b, h, w, af.K2), src),
         "bwd_a_gsrc": lambda: af.attn_fused_bwd_a_gsrc(meta(b, h, w, af.F), *fields,
                                                        meta(af.K2, c, af.F)),
-        "bwd_a_dw": lambda: af.attn_fused_bwd_a_dw(src, meta(b, h, w, af.F), *fields),
+        "bwd_a_dw": lambda: af.attn_fused_bwd_a_dw(src, meta(b, h + 6, w + 6, af.F)),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[kernel]()
@@ -198,7 +199,7 @@ def test_refused_launch_raises(case, monkeypatch):
     fields = [meta(b, h, w) for _ in range(4)]
     if case == "odd_channels":
         with pytest.raises(ValueError, match="even channel count, got 3"):
-            af.attn_fused_bwd_a_dw(meta(b, h, w, 3), meta(b, h, w, af.F), *fields)
+            af.attn_fused_bwd_a_dw(meta(b, h, w, 3), meta(b, h + 6, w + 6, af.F))
         assert asked == []
     elif case == "failed_launch":
         with pytest.raises(RuntimeError, match=r"attn_fused_fwd kernel launch failed: CUDA error 1 "
