@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's serving path and its GAN training step on one
 NVIDIA GPU, with the shift attention engine and with the fused one.
 
-    python3 chip_smoke.py [--out DIR]     # from the root of a checkout, one card
+    python3 chip_smoke.py [--out DIR]   # from the root of a checkout, one card
 
 Phases (any failure exits non-zero, nothing falls back to the CPU):
   1. the card's name and power limit, torch and CUDA versions;
@@ -25,7 +25,9 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      kernels of hoig_torch/csrc/attn_fused.cu; under bf16, B4-fwd's phase A,
      B4-bwd-a-gsrc's projection and B4-bwd-a-dw run on the tensor cores,
      counted as attn_fused_fwd_tc, attn_fused_bwd_a_gsrc_tc and
-     attn_fused_bwd_a_dw_tc) on the same model, data and weights: (a) one
+     attn_fused_bwd_a_dw_tc; B4-bwd-c is bwd_c_kernel, V and the padded
+     gradient kept on chip, with bwd_c_gattn_kernel for g_attn's last sum)
+     on the same model, data and weights: (a) one
      serving call from launch counters at 0 (9 / 1 / 2 launches of B4-fwd /
      rasterizer / gather, no combine) with B4-fwd held against its plain
      version on the nine recorded inputs; (b) one training step (remat off)
@@ -33,15 +35,18 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      backward kernel held against its plain version on the recorded inputs
      (dW on the dG that B4-bwd-a-gsrc returned), finite metrics, every G
      weight moved; each B4 kernel called twice on each input and held
-     bit-equal to itself, and timed beside its plain version, its library
-     yardstick (cuDNN conv2d, conv_transpose2d and the weight gradient of
+     bit-equal to itself (B4-bwd-c's source gradient also bit-equal to the
+     plain version, bf16 and f32), and timed beside its plain version, its
+     library yardstick (cuDNN conv2d, conv_transpose2d and the weight gradient of
      the three tensor-core products alone, named in the kernels line's
      "library" key) and its FP32 path on the f32-cast inputs; the same first
      step twice more with remat off (their G gradients measure the card's
      run-to-run noise) and once with remat and remat_attn on (18 B4-fwd
      launches: the recompute runs each layer's forward again), its G
      gradients held against the remat-off step's; (c) all four kernels on
-     ragged shapes; (d) fused and shift engines agree on the card
+     ragged shapes, and B4-bwd-c also on frames with H or W equal to 1 and
+     below 11 (one pixel collects both margins); (d) fused and shift engines
+     agree on the card
      in f32 (TF32 off), 128 px, batch 1, outputs and the gradients of a fixed
      scalar; (e) the fused serving call and step timed as in phases 5 and 7,
      each B4 kernel and its plain version timed, and the shift engine's
@@ -58,7 +63,8 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      again with the bf16 remat defaults for the memory peak;
   8. one profiler window over two serving calls and one training step with
      each engine splits the device time of each by kernel, and asserts 9
-     launches of dg_kernel and of dw_tc_kernel per fused step;
+     launches of dg_kernel, dw_tc_kernel, bwd_c_kernel, bwd_c_gattn_kernel
+     and fold_kernel per fused step;
   9. print the kernels line, the card line and, last, the result line.
 
 Details (result.json, profile.txt, build.txt: the compiler's report) go to
@@ -857,10 +863,17 @@ def _library_dw(grad_weight):
     return grad_weight.permute(2, 3, 1, 0).reshape(25, grad_weight.shape[1], grad_weight.shape[0])
 
 
+# outputs held bit-equal to the plain version, bf16 and f32: B4-bwd-c's
+# source gradient sums its rounded products and folds the margins in the
+# plain version's order
+EXACT = {"attn_fused_bwd_c": (0,)}
+
+
 def check_fused_kernel(name: str, calls) -> dict:
     """The B4 kernel of wrapper `name` on every recorded call of the main
     path: against its plain version with the inputs as recorded (bf16) and
-    cast to f32, with the tolerances of TOL_*; the bf16 call made twice and
+    cast to f32, with the tolerances of TOL_* (bit-equal for the outputs in
+    EXACT); the bf16 call made twice and
     held bit-equal (the kernels add in a fixed order: a missing fence or
     barrier shows as a difference); then timed, summed over the launches
     (the kernel behind a GPU sleep): the kernel, its plain version, the
@@ -903,6 +916,9 @@ def check_fused_kernel(name: str, calls) -> dict:
             for i, (g_, r_) in enumerate(zip(got, ref)):
                 tol = TOL_F32 if cast else tols[i]
                 ok, e = _within(g_, r_, tol)
+                if i in EXACT.get(name, ()):
+                    check(torch.equal(g_, r_), f"{name} output {i} ({'f32' if cast else 'bf16'}) is "
+                          f"not bit-equal to the plain version at {_fused_shape(name, args)}")
                 check(ok and g_.shape == r_.shape and g_.dtype == r_.dtype,
                       f"{name} output {i} ({'f32' if cast else 'bf16'}) at {_fused_shape(name, args)}: "
                       f"max abs err {e} above {tol} of {float(r_.float().abs().max())}")
@@ -968,12 +984,17 @@ def check_fused_kernel(name: str, calls) -> dict:
 # 18) or of 64 (24), past one 64- or 128-wide chunk; small frames make the
 # tensor-core products split K over the offsets
 RAGGED_FUSED = ((1, 13, 11, 6), (2, 9, 20, 70), (1, 17, 8, 130), (2, 10, 19, 18), (2, 21, 27, 24))
+# B4-bwd-c's frames where one pixel collects both margins of an axis (H or W
+# equal to 1) or one tile touches both edges (H and W below 11)
+SMALL_BWD_C = ((1, 1, 1, 6), (2, 1, 13, 18), (1, 9, 1, 70), (2, 7, 10, 130), (1, 5, 3, 24),
+               (3, 1, 1, 64))
 
 
 def check_fused_ragged() -> dict:
     """(c) All four B4 kernels against their plain versions on RAGGED_FUSED,
-    f32 and bf16, each called twice and held bit-equal to itself (dW on the
-    plain version's dG)."""
+    and B4-bwd-c also on SMALL_BWD_C, f32 and bf16, each called twice and
+    held bit-equal to itself (dW on the plain version's dG; the outputs in
+    EXACT bit-equal to the plain version)."""
     import torch
 
     from hoig_torch.ops import attn_fused as af
@@ -981,7 +1002,7 @@ def check_fused_ragged() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(9)
     randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
     worst: dict = {}  # (kernel, dtype) -> the largest error over the output's largest magnitude
-    for b, h, w, c in RAGGED_FUSED:
+    for b, h, w, c in RAGGED_FUSED + SMALL_BWD_C:
         for dtype in (torch.float32, torch.bfloat16):
             src = randn(b, h, w, c).to(dtype)
             w0s = (randn(25, c, 128) / (25 * c) ** 0.5).to(dtype)
@@ -996,6 +1017,8 @@ def check_fused_ragged() -> dict:
                      "attn_fused_bwd_c": (src, *fields, attn, randn(b, h, w, c).to(dtype)),
                      "attn_fused_bwd_a_gsrc": (g_acc, *fields, w0s),
                      "attn_fused_bwd_a_dw": (src, dg)}
+            if (b, h, w, c) in SMALL_BWD_C:
+                cases = {"attn_fused_bwd_c": cases["attn_fused_bwd_c"]}
             for name, args in cases.items():
                 got = _tuple(getattr(af, name)(*args))
                 ref = _tuple(getattr(af, name + "_reference")(*args))
@@ -1009,11 +1032,15 @@ def check_fused_ragged() -> dict:
                         else TOL_RESID)
                     ok, e = _within(g_, r_, tol)
                     check(ok, f"{name} output {i} differs at {(b, h, w, c)} {dtype}: {e}")
+                    if i in EXACT.get(name, ()):
+                        check(torch.equal(g_, r_), f"{name} output {i} is not bit-equal to the "
+                              f"plain version at {(b, h, w, c)} {dtype}")
                     key = (name, str(dtype).replace("torch.", ""))
                     worst[key] = max(worst.get(key, 0.0), e / float(r_.float().abs().max()))
     log(f"  (c) ragged shapes {', '.join(map(str, RAGGED_FUSED))}, f32 and bf16: all four B4 "
-        "kernels agree with their plain versions and repeat their bits; worst error of the "
-        "largest entry: " + ", ".join(f"{k} {d} {v:.3g}" for (k, d), v in sorted(worst.items())))
+        f"kernels agree with their plain versions and repeat their bits; B4-bwd-c also on "
+        f"{', '.join(map(str, SMALL_BWD_C))}, its source gradient bit-equal throughout; worst "
+        "error of the largest entry: " + ", ".join(f"{k} {d} {v:.3g}" for (k, d), v in sorted(worst.items())))
     return {f"{k} {d}": v for (k, d), v in worst.items()}
 
 
@@ -1312,7 +1339,7 @@ def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
 KERNEL_CLASSES = (
     ("hand-written kernels", ("combine_fwd_kernel", "combine_bwd_src_kernel", "combine_bwd_v_kernel",
                               "raster_kernel", "gather_kernel", "conv5_kernel", "conv5_tc_kernel",
-                              "fwd_pixel_kernel", "bwd_c_pixel_kernel", "bwd_c_gather_kernel",
+                              "fwd_pixel_kernel", "bwd_c_kernel", "bwd_c_gattn_kernel",
                               "fold_kernel", "dg_kernel", "dw_kernel", "dw_tc_kernel",
                               "slice_sum_kernel")),
     ("convolutions (cuDNN)", ("xmma", "cudnn", "cutlass", "implicit_gemm", "fprop", "dgrad", "wgrad",
@@ -1409,7 +1436,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
                     help="directory for result.json, profile.txt and build.txt")
-    out_dir = ap.parse_args().out
+    cli = ap.parse_args()
+    out_dir = cli.out
     try:
         import torch
     except ImportError:
@@ -1512,16 +1540,19 @@ def main() -> int:
         region = "hoig_serve_fused" if path == "serving" else "hoig_train_fused"
         fused[path]["device_ms"] = profile.get(region, {}).get("device_ms")
     del fused_regions
-    # dG is built once per backward (by bwd-a-gsrc's entry point), and dW runs
-    # on the tensor cores: one launch each per attention layer
+    # dG is built once per backward (by bwd-a-gsrc's entry point), dW runs on
+    # the tensor cores, B4-bwd-c is bwd_c_kernel and bwd_c_gattn_kernel, and
+    # only the gsrc projection folds through device memory: one launch each
+    # per attention layer
     hw = profile.get("hoig_train_fused", {}).get("hand_written")
+    want = {"dg_kernel": 9, "dw_tc_kernel": 9, "dw_kernel": 0, "bwd_c_kernel": 9,
+            "bwd_c_gattn_kernel": 9, "fold_kernel": 9}
     if hw is None:
         log("  profiler: the fused step's launches by kernel not measured")
     else:
-        got = {k: hw.get(k, {}).get("count", 0) for k in ("dg_kernel", "dw_tc_kernel", "dw_kernel")}
+        got = {k: hw.get(k, {}).get("count", 0) for k in want}
         log(f"  profiler hoig_train_fused: launches per step {got}")
-        check(got == {"dg_kernel": 9, "dw_tc_kernel": 9, "dw_kernel": 0},
-              f"fused step launches by kernel {got}")
+        check(got == want, f"fused step launches by kernel {got} != {want}")
 
     # 9. report
     kernels = []

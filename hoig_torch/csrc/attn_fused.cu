@@ -32,12 +32,11 @@
 //     logits against w1 in shared memory, the softmax by warp shuffles, the
 //     121 V_d (the 36 that can be nonzero are summed) and the output, lane =
 //     channel pair.
-//   * bwd_c: bwd_c_pixel_kernel writes V (B, H, W, 121) and g_attn (the 36
-//     channel dots <g_out[p], src[p + d]> a pixel needs, reduced by warp
-//     shuffles); bwd_c_gather_kernel forms the source gradient on the padded
-//     frame as a gather (warp = padded pixel: sum_d V_d[P - d] g[P - d]), and
-//     fold_kernel folds the edge margins onto the border pixels and divides
-//     by 25.
+//   * bwd_c: bwd_c_kernel, one block per (image, 8x8 tile, 64 channels),
+//     builds V in shared memory, forms the source gradient of each padded
+//     pixel that folds onto the tile as a gather, folds the margins in
+//     registers and divides by 25, and writes the group's partial g_attn
+//     dots; bwd_c_gattn_kernel adds the groups in order (its own note below).
 //   * bwd_a_gsrc: dg_kernel writes dG[q] = sum_e (ay ax g_acc)[q - e] on the
 //     halo, an output of its own that bwd_a_dw then takes (dG is built once
 //     per backward); the transposed form of the 5x5 product projects dG
@@ -117,6 +116,30 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b)
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of kBytes (4, 8 or 16) into shared memory; src_bytes = 0 fills zeros
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(kBytes), "r"(src_bytes)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 // The two nonzero bilinear coefficients per axis of one pixel: a*0 on shift
 // i*, a*1 on shift i* + 1.
@@ -392,114 +415,341 @@ fwd_pixel_kernel(const T* __restrict__ src, const float* __restrict__ acc0,
 }
 
 // ----------------------------------------------------------------- bwd_c
+//
+// bwd_c_kernel: the phase-C backward of hoig_tpu/ops/attn_pallas.py
+// `_bwd_c_kernel` in one pass, with bwd_c_gattn_kernel for the last sum of
+// g_attn. For the padded frame (H+10) x (W+10) and d in [0, 10]^2 (shift
+// d - 5), with g = g_out:
+//
+//   gpad[P]   = sum_d T(T(V_d[P - d]) * g[P - d]), ascending d (P - d in the image)
+//   gsrc_c    = fold_edges(gpad) / 25 (fold_kernel's order: the margin
+//               columns of a row first, then the rows)
+//   sdot_j[p] = <g[p], src[clamped p + iy - 2 + jy, ix - 2 + jx]>, j = (jy, jx) in [0, 5]^2
+//   g_attn_t  = (1/25) sum_e ay[ey] ax[ex] sdot_(t + e)
+//
+// V_d of a source pixel q is nonzero only on the 6x6 box of d that starts at
+// (iy + 3, ix + 3), q's relative floor; its 36 entries there do not depend on
+// the floor: V[jy, jx] = sum_cy ay_cy sum_cx ax_cx attn[jy - cy, jx - cx]
+// (build_v's terms, in its order).
+//
+// Design. Every padded pixel that folds onto an 8x8 tile of output pixels
+// (its own pixel, or the 5-wide margins of a border tile) gathers only from
+// source pixels within +-5 of the tile, and the dots read the source within
+// +-5 too. So a block owns one image, one tile and 64 channels (a lane's
+// channel pair), and stages once, in shared memory: the 18x18 window's g_out
+// and src for those channels, in T (cp.async, in flight while the rest is
+// built), and each window pixel's 36 V values (built from attn and the
+// coefficient fields, rounded to T) and box origin; 109 KB under bf16 (two
+// blocks per SM), 215 KB under f32. Neither V nor the padded gradient
+// reaches device memory. A warp then takes one output pixel at a time (one
+// of every row and every column of the tile, so that the border's extra
+// work is spread over the warps): for each padded pixel of its fold, the
+// lanes test the 121 offsets, 32 at a time without branches, and list the
+// terms in ascending d by ballot (source pixel, V); every lane sums its
+// channel pair over the list; the fold adds those sums in registers and
+// divides by 25. The 36 dots of the pixel come from the same windows, a
+// lane's two products each, summed across the warp by a butterfly that
+// leaves lane j with dot j (and lane 8 i with dot 32 + i), and go to a small
+// scratch per channel group (groups x B*H*W x 36 f32); bwd_c_gattn_kernel
+// adds the groups in order and applies the coefficients. No float atomics:
+// every run gives the same bits. Under bf16 a pair of products is one
+// mul.bf16x2: it rounds the exact product of two bf16 values once, as the
+// plain version's f32 product (exact) rounded to bf16 does.
+//
+// What bounds it: the bytes are src, g_out, attn, the fields, gsrc_c and
+// g_attn once each (0.07 ms per fused step on an H100), and the work is 36
+// rounded product-adds per pixel and channel for the gather and as many for
+// the dots, on the CUDA cores (the products are rounded to T one by one, as
+// JAX rounds bf16 * bf16, so the tensor cores do not apply); the term
+// lists, the dots' reduction across the warp, the window's 5x re-read of
+// g_out and src from L2 and the V build of each block's window, and the
+// fold of the border tiles' margins come on top, and bound this version.
+// kBcT and kBcCh are repeated in hoig_torch/ops/attn_fused.py (TILING, held
+// against hoig_attn_fused_tiling): the channel groups size the partials
+constexpr int kBcT = 8;                      // output tile edge
+constexpr int kBcWin = kBcT + 2 * kPad;      // 18: the window edge
+constexpr int kBcWinPix = kBcWin * kBcWin;   // 324
+constexpr int kBcCh = 64;                    // channels per block: a channel pair per lane
+constexpr int kBox = 36;                     // V_d that can be nonzero, per source pixel
+constexpr int kBcList = 128;                 // term slots per warp (a padded pixel has <= 121)
 
-// V of every pixel into v_out (B, H, W, 121), and g_attn.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bwd_c_pixel_kernel(const T* __restrict__ src, const float* __restrict__ fy,
-                   const float* __restrict__ fx, const float* __restrict__ wy,
-                   const float* __restrict__ wx, const float* __restrict__ attn,
-                   const T* __restrict__ gout, float* __restrict__ v_out,
-                   float* __restrict__ gattn, long long n_pix, int h, int w, int c) {
-  __shared__ float attn_s[kWarps][kK2];
-  __shared__ float sd_s[kWarps][36];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const long long first = (long long)blockIdx.x * kPixPerBlock;
-  const long long last = min(n_pix, first + kPixPerBlock);
-  for (long long p = first + warp; p < last; p += kWarps) {
-    const int x = static_cast<int>(p % w);
-    const int y = static_cast<int>((p / w) % h);
-    const long long bb = p / ((long long)h * w);
-    const Coef k = load_coef(fy, fx, wy, wx, p);
-    if (lane < kK2) attn_s[warp][lane] = attn[p * kK2 + lane];
-    __syncwarp();
-    build_v(attn_s[warp], k, v_out + p * kNV, lane);
+constexpr int bc_smem_bytes() {  // g_out and src windows, V, box origins, the warps' term lists
+  return (2 * kBcWinPix * kBcCh + kBcWinPix * kBox + kWarps * kBcList) *
+             static_cast<int>(sizeof(T)) +
+         kBcWinPix * 4 + kWarps * kBcList * 2;
+}
+// bwd_c_kernel gives warp k the pixels (row, (row + k) % kBcT): one warp per
+// tile column covers the tile; the f32 build must fit one block's shared memory
+static_assert(kWarps == kBcT, "bwd_c_kernel needs one warp per tile column");
+static_assert(bc_smem_bytes<float>() <= 227 * 1024, "bwd_c_kernel's f32 window exceeds 227 KB");
 
-    // sdot[d] = <g_out[p], src[p + d]> over the 6x6 box of d that g_attn reads;
-    // products rounded to T, each lane's channels in ascending order, then a
-    // fixed shuffle tree
-    const int dy0 = k.iy - 2;
-    const int dx0 = k.ix - 2;
-    const T* gp = gout + p * c;
-    for (int j = 0; j < 36; ++j) {
-      const int sy = clampi(y + dy0 + j / 6, 0, h - 1);
-      const int sx = clampi(x + dx0 + j % 6, 0, w - 1);
-      const T* sp = src + ((bb * h + sy) * w + sx) * c;
-      float part = 0.f;
-      for (int ch = 2 * lane; ch < c; ch += 64) {
-        const float2 gv = load_pair(gp + ch);
-        const float2 sv = load_pair(sp + ch);
-        part = __fadd_rn(part, rnd<T>(__fmul_rn(gv.x, sv.x)));
-        part = __fadd_rn(part, rnd<T>(__fmul_rn(gv.y, sv.y)));
-      }
-      part = warp_sum(part);
-      if (lane == 0) sd_s[warp][j] = part;
-    }
-    __syncwarp();
-    // g_attn[t] = (1/25) sum_ey ay[ey] sum_ex ax[ex] sdot[t + e], ascending e
-    if (lane < kK2) {
-      const int ty = lane / 5 - 2;
-      const int tx = lane % 5 - 2;
-      float val = 0.f;
+// a channel pair of T as it lies in memory, and the two products of two
+// pairs rounded to T, in f32 (under bf16 one mul.bf16x2)
+template <typename T> struct Pair2;
+template <> struct Pair2<float> { using type = float2; };
+template <> struct Pair2<__nv_bfloat16> { using type = __nv_bfloat162; };
+__device__ __forceinline__ float2 mul_pair(float2 a, float2 b) {
+  return make_float2(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
+}
+__device__ __forceinline__ float2 mul_pair(__nv_bfloat162 a, __nv_bfloat162 b) {
+  const __nv_bfloat162 pr = __hmul2(a, b);
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(&pr);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xFFFF0000u));
+}
+__device__ __forceinline__ float2 splat(float v) { return make_float2(v, v); }
+__device__ __forceinline__ __nv_bfloat162 splat(__nv_bfloat16 v) { return __bfloat162bfloat162(v); }
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// One step of the transposing butterfly over v[0 .. 2 kHalf - 1]: a lane
+// keeps the half that its side of the pair owns, and adds its partner's copy
+// of that half. After the steps 16, 8, 4, 2, 1, lane l holds the warp's sum
+// of v[l].
+template <int kHalf>
+__device__ __forceinline__ void butterfly_step(float (&v)[kBox], int lane) {
+  const bool upper = lane & kHalf;
 #pragma unroll
-      for (int cy = 0; cy < 2; ++cy) {
-        float sx = 0.f;
-#pragma unroll
-        for (int cx = 0; cx < 2; ++cx) {
-          sx = __fadd_rn(sx, __fmul_rn(cx ? k.ax1 : k.ax0, sd_s[warp][(ty + cy + 2) * 6 + tx + cx + 2]));
-        }
-        val = __fadd_rn(val, __fmul_rn(cy ? k.ay1 : k.ay0, sx));
-      }
-      gattn[p * kK2 + lane] = __fdiv_rn(val, 25.f);
-    }
-    __syncwarp();
+  for (int i = 0; i < kHalf; ++i) {
+    const float keep = upper ? v[i + kHalf] : v[i];
+    const float give = upper ? v[i] : v[i + kHalf];
+    v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, give, kHalf));
   }
 }
 
-// Source gradient on the padded frame (B, H+10, W+10, C):
-// gpad[P] = sum_d T(T(V_d[P - d]) * g[P - d]), ascending d, as a gather.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bwd_c_gather_kernel(const T* __restrict__ gout, const float* __restrict__ v,
-                    float* __restrict__ gpad, long long n_pad, int h, int w, int c) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long pp = (long long)blockIdx.x * kWarps + warp;
-  if (pp >= n_pad) return;
-  const int hp = h + 2 * kPad;
-  const int wp = w + 2 * kPad;
-  const int px = static_cast<int>(pp % wp);
-  const int py = static_cast<int>((pp / wp) % hp);
-  const long long bb = pp / ((long long)hp * wp);
-  for (int c0 = 0; c0 < c; c0 += 64) {
-    const int ch = c0 + 2 * lane;
-    float a0 = 0.f, a1 = 0.f;
-    for (int dyi = 0; dyi < kNS; ++dyi) {
-      const int qy = py - dyi;
-      if (qy < 0 || qy >= h) continue;
-      for (int dxi = 0; dxi < kNS; ++dxi) {
-        const int qx = px - dxi;
-        if (qx < 0 || qx >= w) continue;
-        const long long q = (bb * h + qy) * w + qx;
-        const float vd = rnd<T>(v[q * kNV + dyi * kNS + dxi]);
-        if (vd == 0.f || ch >= c) continue;
-        const float2 gv = load_pair(gout + q * c + ch);
-        a0 = __fadd_rn(a0, rnd<T>(__fmul_rn(vd, gv.x)));
-        a1 = __fadd_rn(a1, rnd<T>(__fmul_rn(vd, gv.y)));
+// kUnit: bytes per cp.async of the staging, 16 (8 bf16 or 4 f32 channels;
+// C a multiple of those, 16-byte aligned tensors) or one channel pair
+template <typename T, int kUnit>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+bwd_c_kernel(const T* __restrict__ src, const float* __restrict__ fy, const float* __restrict__ fx,
+             const float* __restrict__ wy, const float* __restrict__ wx,
+             const float* __restrict__ attn, const T* __restrict__ gout,
+             float* __restrict__ gsrc, float* __restrict__ sdot_part, int h, int w, int c) {
+  using P2 = typename Pair2<T>::type;
+  constexpr int kPairs = kBcCh / 2;
+  extern __shared__ __align__(16) unsigned char bc_smem[];
+  T* const gs = reinterpret_cast<T*>(bc_smem);                     // [kBcWinPix][kBcCh]
+  T* const ss = gs + kBcWinPix * kBcCh;                             // [kBcWinPix][kBcCh]
+  T* const vr = ss + kBcWinPix * kBcCh;                             // [kBcWinPix][kBox]
+  T* const lv = vr + kBcWinPix * kBox;                              // [kWarps][kBcList]
+  int* const org = reinterpret_cast<int*>(lv + kWarps * kBcList);   // [kBcWinPix]: 8 oy + ox
+  unsigned short* const lq = reinterpret_cast<unsigned short*>(org + kBcWinPix);  // [kWarps][kBcList]
+  const P2* const gs2 = reinterpret_cast<const P2*>(gs);
+  const P2* const ss2 = reinterpret_cast<const P2*>(ss);
+  const int tiles_x = (w + kBcT - 1) / kBcT;
+  const int ty0 = (blockIdx.x / tiles_x) * kBcT;
+  const int tx0 = (blockIdx.x % tiles_x) * kBcT;
+  const int wy0 = ty0 - kPad;  // the window's first row and column, in image coordinates
+  const int wx0 = tx0 - kPad;
+  const int c0 = blockIdx.y * kBcCh;
+  const long long img = (long long)blockIdx.z * h * w;
+  const int tid = threadIdx.x;
+
+  // the window's pixels that lie in the image: g_out and src by cp.async
+  // (zero past C), in flight while V and the box origins are built
+  constexpr int kEl = kUnit / static_cast<int>(sizeof(T));  // channels per copy
+  constexpr int kUnits = kBcCh / kEl;                         // copies per pixel and tensor
+  for (int i = tid; i < kBcWinPix * kUnits; i += kThreads) {
+    const int q = i / kUnits;
+    const int u = i - q * kUnits;
+    const int y = wy0 + q / kBcWin;
+    const int x = wx0 + q % kBcWin;
+    if (y < 0 || y >= h || x < 0 || x >= w) continue;
+    const int ch = c0 + u * kEl;
+    const bool ok = ch < c;
+    const long long off = ok ? (img + (long long)y * w + x) * c + ch : 0;
+    cp_async<kUnit>(smem_u32(gs + q * kBcCh + u * kEl), gout + off, ok ? kUnit : 0);
+    cp_async<kUnit>(smem_u32(ss + q * kBcCh + u * kEl), src + off, ok ? kUnit : 0);
+  }
+  cp_async_commit();
+  for (int q = tid; q < kBcWinPix; q += kThreads) {
+    const int y = wy0 + q / kBcWin;
+    const int x = wx0 + q % kBcWin;
+    if (y < 0 || y >= h || x < 0 || x >= w) continue;
+    const long long p = img + (long long)y * w + x;
+    const Coef k = load_coef(fy, fx, wy, wx, p);
+    org[q] = 8 * (k.iy + 3) + k.ix + 3;
+    float at[kK2];
+#pragma unroll
+    for (int t = 0; t < kK2; ++t) at[t] = attn[p * kK2 + t];
+#pragma unroll
+    for (int jy = 0; jy < 6; ++jy) {
+#pragma unroll
+      for (int jx = 0; jx < 6; ++jx) {
+        float val = 0.f;
+#pragma unroll
+        for (int cy = 0; cy < 2; ++cy) {
+          if (jy - cy < 0 || jy - cy > 4) continue;
+          float vx = 0.f;
+#pragma unroll
+          for (int cx = 0; cx < 2; ++cx) {
+            if (jx - cx < 0 || jx - cx > 4) continue;
+            vx = __fadd_rn(vx, __fmul_rn(cx ? k.ax1 : k.ax0, at[(jy - cy) * 5 + jx - cx]));
+          }
+          val = __fadd_rn(val, __fmul_rn(cy ? k.ay1 : k.ay0, vx));
+        }
+        vr[q * kBox + jy * 6 + jx] = from_float<T>(val);
       }
     }
-    if (ch < c) store_pair(gpad + pp * c + ch, a0, a1);
   }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int ch = c0 + 2 * lane;
+  T* const my_lv = lv + warp * kBcList;
+  unsigned short* const my_lq = lq + warp * kBcList;
+  const P2* const gs_lane = gs2 + lane;  // this lane's channel pair of window pixel 0
+  const unsigned below = (1u << lane) - 1u;
+  // the offsets d = lane + 32 k this lane tests, per axis (past 120: none)
+  int cand_dy[4], cand_dx[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int d = lane + 32 * k;
+    cand_dy[k] = d < kNV ? d / kNS : 1 << 20;
+    cand_dx[k] = d % kNS;
+  }
+  for (int row = 0; row < kBcT; ++row) {
+    const int y = ty0 + row;
+    const int x = tx0 + (row + warp) % kBcT;
+    if (y >= h || x >= w) continue;  // the same for the whole warp
+    const int pw = (y - wy0) * kBcWin + x - wx0;
+    const long long p = img + (long long)y * w + x;
+
+    // gsrc_c: the padded pixels (r, cc) that fold onto (y, x), each the sum
+    // of its listed terms
+    const int r_lo = y == 0 ? 0 : y + kPad;
+    const int r_hi = y == h - 1 ? h + 2 * kPad - 1 : y + kPad;
+    const int c_lo = x == 0 ? 0 : x + kPad;
+    const int c_hi = x == w - 1 ? w + 2 * kPad - 1 : x + kPad;
+    float tot0 = 0.f, tot1 = 0.f;
+    for (int r = r_lo; r <= r_hi; ++r) {
+      float row0 = 0.f, row1 = 0.f;
+      for (int cc = c_lo; cc <= c_hi; ++cc) {
+        // terms: d with q = (r, cc) - d in the image and d in q's box
+        int n = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int qy = r - cand_dy[k];
+          const int qx = cc - cand_dx[k];
+          const bool in = static_cast<unsigned>(qy) < static_cast<unsigned>(h) &&
+                          static_cast<unsigned>(qx) < static_cast<unsigned>(w);
+          const int qw = in ? (qy - wy0) * kBcWin + qx - wx0 : 0;
+          const int o = org[qw];
+          const int by = cand_dy[k] - (o >> 3);
+          const int bx = cand_dx[k] - (o & 7);
+          const bool ok = in && static_cast<unsigned>(by) < 6u && static_cast<unsigned>(bx) < 6u;
+          const T v = vr[ok ? qw * kBox + by * 6 + bx : 0];
+          const unsigned m = __ballot_sync(0xffffffffu, ok);
+          if (ok) {
+            const int at = n + __popc(m & below);
+            my_lq[at] = static_cast<unsigned short>(qw * kPairs);
+            my_lv[at] = v;
+          }
+          n += __popc(m);
+        }
+        __syncwarp();
+        float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+        for (int t = 0; t < n; ++t) {
+          const float2 pr = mul_pair(splat(my_lv[t]), gs_lane[my_lq[t]]);
+          a0 = __fadd_rn(a0, pr.x);
+          a1 = __fadd_rn(a1, pr.y);
+        }
+        __syncwarp();  // the list is rebuilt for the next padded pixel
+        row0 = __fadd_rn(row0, a0);
+        row1 = __fadd_rn(row1, a1);
+      }
+      tot0 = __fadd_rn(tot0, row0);
+      tot1 = __fadd_rn(tot1, row1);
+    }
+    if (ch < c) store_pair(gsrc + p * c + ch, __fdiv_rn(tot0, 25.f), __fdiv_rn(tot1, 25.f));
+
+    // the 36 dots over this group's channels, products rounded to T
+    const int oy = (org[pw] >> 3) - kPad;  // iy - 2: the box's first shift
+    const int ox = (org[pw] & 7) - kPad;
+    const P2* rows[6];  // this lane's pair in the box's source rows and columns
+    int cols[6];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      rows[j] = ss2 + (clampi(y + oy + j, 0, h - 1) - wy0) * kBcWin * kPairs + lane;
+      cols[j] = (clampi(x + ox + j, 0, w - 1) - wx0) * kPairs;
+    }
+    const P2 gp = gs_lane[pw * kPairs];
+    float sd[kBox];
+#pragma unroll
+    for (int j = 0; j < kBox; ++j) {
+      const float2 pr = mul_pair(gp, rows[j / 6][cols[j % 6]]);
+      sd[j] = __fadd_rn(pr.x, pr.y);
+    }
+    butterfly_step<16>(sd, lane);
+    butterfly_step<8>(sd, lane);
+    butterfly_step<4>(sd, lane);
+    butterfly_step<2>(sd, lane);
+    butterfly_step<1>(sd, lane);
+    // dots 32..35: the steps 16 and 8 keep one of the four, then a plain sum
+    // over the lanes that differ in the low three bits; lane 8 i holds dot 32 + i
+    float e2[2], e1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool upper = lane & 16;
+      e2[i] = __fadd_rn(upper ? sd[34 + i] : sd[32 + i],
+                        __shfl_xor_sync(0xffffffffu, upper ? sd[32 + i] : sd[34 + i], 16));
+    }
+    {
+      const bool upper = lane & 8;
+      e1 = __fadd_rn(upper ? e2[1] : e2[0], __shfl_xor_sync(0xffffffffu, upper ? e2[0] : e2[1], 8));
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) e1 = __fadd_rn(e1, __shfl_xor_sync(0xffffffffu, e1, o));
+    float* const dst = sdot_part + ((long long)blockIdx.y * gridDim.z * h * w + p) * kBox;
+    dst[lane] = sd[0];
+    if ((lane & 7) == 0) dst[32 + (lane >> 3)] = e1;
+  }
+}
+
+// g_attn[p, t] = (1/25) sum_ey ay[ey] sum_ex ax[ex] sdot[p, t + e], ascending
+// e, where sdot is the sum of bwd_c_kernel's channel groups' partial dots,
+// added in order; a thread per (pixel, t)
+__global__ void __launch_bounds__(kThreads)
+bwd_c_gattn_kernel(const float* __restrict__ sdot_part, const float* __restrict__ fy,
+                   const float* __restrict__ fx, const float* __restrict__ wy,
+                   const float* __restrict__ wx, float* __restrict__ gattn, long long n_pix,
+                   int groups) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_pix * kK2) return;
+  const long long p = i / kK2;
+  const int t = static_cast<int>(i - p * kK2);
+  const int ty = t / 5 - 2;
+  const int tx = t % 5 - 2;
+  const Coef k = load_coef(fy, fx, wy, wx, p);
+  float val = 0.f;
+#pragma unroll
+  for (int cy = 0; cy < 2; ++cy) {
+    float sx = 0.f;
+#pragma unroll
+    for (int cx = 0; cx < 2; ++cx) {
+      const long long j = p * kBox + (ty + cy + 2) * 6 + tx + cx + 2;
+      float sd = sdot_part[j];
+      for (int g = 1; g < groups; ++g) sd = __fadd_rn(sd, sdot_part[g * n_pix * kBox + j]);
+      sx = __fadd_rn(sx, __fmul_rn(cx ? k.ax1 : k.ax0, sd));
+    }
+    val = __fadd_rn(val, __fmul_rn(cy ? k.ay1 : k.ay0, sx));
+  }
+  gattn[i] = __fdiv_rn(val, 25.f);
 }
 
 // Fold the edge-padded frame's gradient onto the image (the replicate-pad
 // backward): border pixels collect their margin's entries, the columns of a
-// row in ascending order first, then the rows in ascending order.
+// row in ascending order first, then the rows in ascending order (the gsrc
+// projection's; bwd_c_kernel folds in its tile, in the same order).
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const float* __restrict__ gpad, float* __restrict__ out, long long n, int h, int w,
-            int c, int divide25) {
+            int c) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const int ch = static_cast<int>(i % c);
@@ -519,14 +769,12 @@ fold_kernel(const float* __restrict__ gpad, float* __restrict__ out, long long n
     for (int cc = c_lo; cc <= c_hi; ++cc) row = __fadd_rn(row, gpad[((bb * hp + r) * wp + cc) * c + ch]);
     tot = __fadd_rn(tot, row);
   }
-  out[i] = divide25 ? __fdiv_rn(tot, 25.f) : tot;
+  out[i] = tot;
 }
 
-cudaError_t launch_fold(const float* gpad, float* out, int b, int h, int w, int c, int divide25,
-                        cudaStream_t s) {
+cudaError_t launch_fold(const float* gpad, float* out, int b, int h, int w, int c, cudaStream_t s) {
   const long long n = (long long)b * h * w * c;
-  fold_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(gpad, out, n, h, w, c,
-                                                                             divide25);
+  fold_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(gpad, out, n, h, w, c);
   return cudaGetLastError();
 }
 
@@ -750,9 +998,6 @@ constexpr int tc_smem_bytes() {  // the windows (three parts each when transpose
   return (kTcWG * (kTransposed ? 3 : 1) * kTcWinUnits + 2 * kTcBUnits) * 16;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // wgmma matrix descriptor without swizzle: start address, leading byte offset
 // (between core matrices along K) and stride byte offset (along M or N)
@@ -761,17 +1006,6 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 // makes this thread's shared-memory writes visible to the tensor cores' reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -918,7 +1152,7 @@ conv5_tc_kernel(const void* __restrict__ xv, const __nv_bfloat16* __restrict__ w
         const int nc = (grp >> 3) * 4 + (lane >> 3);
         const bool ok = k0 + k < kdim;
         const __nv_bfloat16* src = ok ? w0s + ((long long)u * kdim + k0 + k) * ndim + n0 + 8 * nc : w0s;
-        cp_async16(smem_u32(bs + nc * kTcKs + k), src, ok ? 16 : 0);
+        cp_async<16>(smem_u32(bs + nc * kTcKs + k), src, ok ? 16 : 0);
       } else {
         // K-major: unit kc * kTcN + n holds w0s[24 - u, n0 + n, k0 + 8 kc .. + 7]
         const int n = (grp & 15) * 8 + (lane & 7);
@@ -926,7 +1160,7 @@ conv5_tc_kernel(const void* __restrict__ xv, const __nv_bfloat16* __restrict__ w
         const bool ok = n0 + n < ndim;
         const __nv_bfloat16* src =
             ok ? w0s + ((long long)(kK2 - 1 - u) * ndim + n0 + n) * kdim + k0 + 8 * kc : w0s;
-        cp_async16(smem_u32(bs + kc * kTcN + n), src, ok ? 16 : 0);
+        cp_async<16>(smem_u32(bs + kc * kTcN + n), src, ok ? 16 : 0);
       }
     }
   };
@@ -1199,7 +1433,7 @@ dw_tc_kernel(const __nv_bfloat16* __restrict__ src, const float* __restrict__ dg
       const int ch = c0 + 8 * col;
       uint4* dst = a_s + col * kDwPix + k;
       if (vec) {
-        cp_async16(smem_u32(dst), ch < c ? sp + ch : src, ch < c ? 16 : 0);
+        cp_async<16>(smem_u32(dst), ch < c ? sp + ch : src, ch < c ? 16 : 0);
       } else {
         *dst = load_bf16x8(reinterpret_cast<const unsigned short*>(sp) + ch, c - ch);
       }
@@ -1309,23 +1543,40 @@ int fwd_tc(const void* src, const void* acc0, const void* w0s, const void* w1, c
                                          h, w, c, s);
 }
 
+// bwd_c_kernel over (tiles, channel groups, images), then bwd_c_gattn_kernel
+template <typename T, int kUnit>
+cudaError_t launch_bwd_c(const void* src, const float* fy, const float* fx, const float* wy,
+                         const float* wx, const void* attn, const void* gout, void* gsrc,
+                         float* part, int b, int h, int w, int c, int groups, cudaStream_t s) {
+  constexpr int smem = bc_smem_bytes<T>();
+  HOIG_TRY(cudaFuncSetAttribute(bwd_c_kernel<T, kUnit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem));
+  const dim3 grid(((h + kBcT - 1) / kBcT) * ((w + kBcT - 1) / kBcT), groups, b);
+  bwd_c_kernel<T, kUnit><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(src), fy, fx, wy, wx, static_cast<const float*>(attn),
+      static_cast<const T*>(gout), static_cast<float*>(gsrc), part, h, w, c);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int bwd_c(const void* src, const void* fy, const void* fx, const void* wy, const void* wx,
-          const void* attn, const void* gout, void* gsrc, void* gattn, void* v, void* gpad, int b,
-          int h, int w, int c, cudaStream_t s) {
+          const void* attn, const void* gout, void* gsrc, void* gattn, void* part, int b, int h,
+          int w, int c, int groups, cudaStream_t s) {
+  const float* fy_ = static_cast<const float*>(fy);
+  const float* fx_ = static_cast<const float*>(fx);
+  const float* wy_ = static_cast<const float*>(wy);
+  const float* wx_ = static_cast<const float*>(wx);
+  float* part_ = static_cast<float*>(part);
+  const bool vec = c % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(gout) % 16 == 0;
+  HOIG_TRY(vec ? launch_bwd_c<T, 16>(src, fy_, fx_, wy_, wx_, attn, gout, gsrc, part_, b, h, w, c,
+                                     groups, s)
+               : launch_bwd_c<T, 2 * static_cast<int>(sizeof(T))>(src, fy_, fx_, wy_, wx_, attn, gout, gsrc, part_,
+                                                b, h, w, c, groups, s));
   const long long n_pix = (long long)b * h * w;
-  bwd_c_pixel_kernel<T><<<(unsigned)((n_pix + kPixPerBlock - 1) / kPixPerBlock), kThreads, 0, s>>>(
-      static_cast<const T*>(src), static_cast<const float*>(fy), static_cast<const float*>(fx),
-      static_cast<const float*>(wy), static_cast<const float*>(wx),
-      static_cast<const float*>(attn), static_cast<const T*>(gout), static_cast<float*>(v),
-      static_cast<float*>(gattn), n_pix, h, w, c);
-  HOIG_TRY(cudaGetLastError());
-  const long long n_pad = (long long)b * (h + 2 * kPad) * (w + 2 * kPad);
-  bwd_c_gather_kernel<T><<<(unsigned)((n_pad + kWarps - 1) / kWarps), kThreads, 0, s>>>(
-      static_cast<const T*>(gout), static_cast<const float*>(v), static_cast<float*>(gpad), n_pad,
-      h, w, c);
-  HOIG_TRY(cudaGetLastError());
-  return launch_fold(static_cast<const float*>(gpad), static_cast<float*>(gsrc), b, h, w, c, 1, s);
+  bwd_c_gattn_kernel<<<(unsigned)((n_pix * kK2 + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      part_, fy_, fx_, wy_, wx_, static_cast<float*>(gattn), n_pix, groups);
+  return cudaGetLastError();
 }
 
 // f32 weights: the projection as FP32
@@ -1339,7 +1590,7 @@ int bwd_a_gsrc(const void* gacc, const void* fy, const void* fx, const void* wy,
                      static_cast<const float*>(wx), dg_, b, h, w, s));
   HOIG_TRY(launch_conv5<true>(dg_, static_cast<const float*>(w0s), gpad_, b, h + 2 * kHalo,
                               w + 2 * kHalo, kF, h + 2 * kPad, w + 2 * kPad, c, -4, s));
-  return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, 0, s);
+  return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, s);
 }
 
 // bf16 weights: the projection on the tensor cores, dG split in three
@@ -1354,7 +1605,7 @@ int bwd_a_gsrc_tc(const void* gacc, const void* fy, const void* fx, const void* 
   HOIG_TRY(launch_conv5_tc<true>(dg_, w0s, gpad_, static_cast<float*>(part), b, h + 2 * kHalo,
                                  w + 2 * kHalo, kF, h + 2 * kPad, w + 2 * kPad, c, -4, splits, 0,
                                  s));
-  return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, 0, s);
+  return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, s);
 }
 
 // f32 source: dW as FP32
@@ -1415,18 +1666,21 @@ extern "C" int hoig_attn_fused_fwd_tc(const void* src, const void* acc0, const v
                 splits, static_cast<cudaStream_t>(stream));
 }
 
+// part: groups x (B*H*W) x 36 f32, the channel groups' partial g_attn dots;
+// groups must be ceil(C / 64), the wrapper's count of bwd_c_kernel's blocks
 extern "C" int hoig_attn_fused_bwd_c(const void* src, const void* fy, const void* fx,
                                      const void* wy, const void* wx, const void* attn,
-                                     const void* gout, void* gsrc, void* gattn, void* v,
-                                     void* gpad, int b, int h, int w, int c, int is_bf16,
-                                     void* stream) {
-  if (bad_dims(b, h, w, c)) return cudaErrorInvalidValue;
+                                     const void* gout, void* gsrc, void* gattn, void* part, int b,
+                                     int h, int w, int c, int groups, int is_bf16, void* stream) {
+  if (bad_dims(b, h, w, c) || groups != (c + kBcCh - 1) / kBcCh || groups > 65535) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return bwd_c<__nv_bfloat16>(src, fy, fx, wy, wx, attn, gout, gsrc, gattn, v, gpad, b, h, w, c,
-                                s);
+    return bwd_c<__nv_bfloat16>(src, fy, fx, wy, wx, attn, gout, gsrc, gattn, part, b, h, w, c,
+                                groups, s);
   }
-  return bwd_c<float>(src, fy, fx, wy, wx, attn, gout, gsrc, gattn, v, gpad, b, h, w, c, s);
+  return bwd_c<float>(src, fy, fx, wy, wx, attn, gout, gsrc, gattn, part, b, h, w, c, groups, s);
 }
 
 extern "C" int hoig_attn_fused_bwd_a_gsrc(const void* gacc, const void* fy, const void* fx,
@@ -1469,12 +1723,13 @@ extern "C" int hoig_attn_fused_bwd_a_dw_tc(const void* src, const void* dg, void
 }
 
 // The tile constants that hoig_torch/ops/attn_fused.py repeats (TILING) to
-// pick its split-K factors, in TILING's order: conv5_tc_kernel's tile edge,
-// tiles per block and outputs per block; dw_tc_kernel's pixels per chunk and
-// channels per block; dw_kernel's channels per block. Writes at most n of
-// them to out and returns how many there are.
+// pick its split-K factors and size bwd_c's partials, in TILING's order:
+// conv5_tc_kernel's tile edge, tiles per block and outputs per block;
+// dw_tc_kernel's pixels per chunk and channels per block; dw_kernel's
+// channels per block; bwd_c_kernel's tile edge and channels per block.
+// Writes at most n of them to out and returns how many there are.
 extern "C" int hoig_attn_fused_tiling(int* out, int n) {
-  const int v[] = {kT, kTcWG, kTcN, kDwPix, kDwCh, kCt};
+  const int v[] = {kT, kTcWG, kTcN, kDwPix, kDwCh, kCt, kBcT, kBcCh};
   constexpr int kCount = sizeof(v) / sizeof(v[0]);
   for (int i = 0; i < n && i < kCount; ++i) out[i] = v[i];
   return kCount;

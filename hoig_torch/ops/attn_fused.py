@@ -42,10 +42,16 @@ folds) fix an order of summation that the CUDA kernels repeat; only the
 channel reductions (G, the logits, the g_attn dots, the gsrc_a projection
 and dW) are summed in another order on the card.
 
+B4-bwd-c is one pass over the frame on the card (`bwd_c_kernel`, a block
+per image, 8 x 8 tile and 64 channels: V and the padded source gradient
+stay in shared memory and registers) and a small second launch that adds
+the channel groups' partial g_attn dots in order (`bwd_c_gattn_kernel`).
+
 The edge-padded margins of the source gradient are folded onto the border
-pixels (the replicate-pad backward) by `_fold_edges` here and by the
-`fold_kernel` of the CUDA source, in the same order: the margin columns of
-a row in ascending order first, then the rows.
+pixels (the replicate-pad backward) by `_fold_edges` here, and on the card
+by `bwd_c_kernel` in its tiles and by `fold_kernel` for the gsrc
+projection, all in the same order: the margin columns of a row in
+ascending order first, then the rows.
 """
 
 from __future__ import annotations
@@ -74,8 +80,8 @@ _I = ctypes.c_int
 # fwd: src, acc0, w0s, w1, b1, fy, fx, wy, wx, out, acc, attn, g_scratch, b, h, w, c, bf16, stream
 # (fwd, bwd_a_gsrc and bwd_a_dw refuse bf16 = 1: bf16 takes their _tc entry points)
 _FWD_ARGS = [_P] * 13 + [_I] * 5 + [_P]
-# bwd_c: src, fy, fx, wy, wx, attn, g_out, gsrc, g_attn, v_scratch, pad_scratch, b, h, w, c, bf16, stream
-_BWD_C_ARGS = [_P] * 11 + [_I] * 5 + [_P]
+# bwd_c: src, fy, fx, wy, wx, attn, g_out, gsrc, g_attn, dot_scratch, b, h, w, c, groups, bf16, stream
+_BWD_C_ARGS = [_P] * 10 + [_I] * 6 + [_P]
 # fwd_tc: as fwd with part_scratch after g_scratch, and splits in place of bf16
 _FWD_TC_ARGS = [_P] * 14 + [_I] * 5 + [_P]
 # bwd_a_gsrc: g_acc, fy, fx, wy, wx, w0s, gsrc, dg, pad_scratch, b, h, w, c, bf16, stream
@@ -91,9 +97,12 @@ _SMS = 132  # the H100's SMs: the split-K factors aim at filling them
 # in which attn_fused.cu's hoig_attn_fused_tiling reports them (chip_smoke.py
 # holds this copy against it): conv5_tc_kernel's output tiles of 8 x 8
 # pixels, two per block, 128 outputs wide; dw_tc_kernel's chunks of 64
-# pixels and 128 channels per block; dw_kernel's 64 channels per block
+# pixels and 128 channels per block; dw_kernel's 64 channels per block;
+# bwd_c_kernel's 8 x 8 tiles and 64 channels per block (its channel groups,
+# which the entry point checks)
 TILING = dict(tc_tile=8, tc_tiles_per_block=2, tc_n=128, dw_tc_pixels=64, dw_tc_channels=128,
-              dw_channels=64)
+              dw_channels=64, bwd_c_tile=8, bwd_c_channels=64)
+BOX = 36  # V_d that can be nonzero per pixel: the 6 x 6 box of d at its relative floor
 
 
 def _offsets():
@@ -434,11 +443,12 @@ def attn_fused_bwd_c(src, fy_rel, fx_rel, wy, wx, attn, g_out):
     f32 = dict(dtype=torch.float32, device=src.device)
     gsrc = torch.empty((b, h, w, c), **f32)
     g_attn = torch.empty((b, h, w, K2), **f32)
-    v = torch.empty((b, h, w, NSHIFT * NSHIFT), **f32)
-    gpad = torch.empty((b, h + 2 * PAD, w + 2 * PAD, c), **f32)
+    # each channel group's partial g_attn dots, added in order by the second launch
+    groups = -(-c // TILING["bwd_c_channels"])
+    dots = torch.empty((groups, b * h * w, BOX), **f32)
     _launch("hoig_attn_fused_bwd_c", "attn_fused_bwd_c", _BWD_C_ARGS,
-            _ptrs(src, fy_rel, fx_rel, wy, wx, attn, g_out, gsrc, g_attn, v, gpad)
-            + [b, h, w, c, int(src.dtype == torch.bfloat16)])
+            _ptrs(src, fy_rel, fx_rel, wy, wx, attn, g_out, gsrc, g_attn, dots)
+            + [b, h, w, c, groups, int(src.dtype == torch.bfloat16)])
     return gsrc, g_attn
 
 

@@ -147,6 +147,116 @@ def test_generator_with_fused_engine_matches_jax():
                                    err_msg=f"output {i}")
 
 
+def _bwd_c_tiled(src, fy_rel, fx_rel, wy, wx, attn, g_out):
+    """B4-bwd-c computed as csrc/attn_fused.cu's bwd_c_kernel and
+    bwd_c_gattn_kernel compute it: per image, tile of TILING's bwd_c_tile
+    pixels and group of bwd_c_channels channels; each pixel's 36 nonzero V_d
+    on the 6 x 6 box at its relative floor, rounded to the source dtype; each
+    padded pixel that folds onto an output pixel summed over its terms in
+    ascending d, the margins folded in the tile (columns of a row, then
+    rows), / 25; the 36 dots per group from the clamped source, the groups
+    added in order, then the coefficients. Asserts that every source pixel
+    it reads lies within the tile's +-PAD window, which is all that the
+    kernel stages. Returns (gsrc_c, g_attn) f32."""
+    tile, group = af.TILING["bwd_c_tile"], af.TILING["bwd_c_channels"]
+    b, h, w, c = src.shape
+    dt = src.dtype
+    g = g_out.to(dt)
+    ay = (1.0 - wy, wy)
+    ax = (1.0 - wx, wx)
+    at = attn.float().reshape(b, h, w, af.K, af.K)
+    vbox = torch.zeros((b, h, w, 6, 6))
+    for jy in range(6):
+        for jx in range(6):
+            val = torch.zeros((b, h, w))
+            for cy in (0, 1):
+                if 0 <= jy - cy <= 4:
+                    vx = torch.zeros((b, h, w))
+                    for cx in (0, 1):
+                        if 0 <= jx - cx <= 4:
+                            vx = vx + ax[cx] * at[..., jy - cy, jx - cx]
+                    val = val + ay[cy] * vx
+            vbox[..., jy, jx] = val
+    vbox = vbox.to(dt)
+    oy = (fy_rel + 3).long().tolist()  # the box's first d index per axis
+    ox = (fx_rel + 3).long().tolist()
+    gsrc = torch.zeros((b, h, w, c))
+    dots = torch.zeros((b, h, w, af.BOX))
+    pad = af.PAD
+    for bb in range(b):
+        for ty0 in range(0, h, tile):
+            for tx0 in range(0, w, tile):
+                def in_window(y, x):
+                    return ty0 - pad <= y < ty0 + tile + pad and tx0 - pad <= x < tx0 + tile + pad
+
+                for c0 in range(0, c, group):
+                    chans = slice(c0, min(c, c0 + group))
+                    for y in range(ty0, min(h, ty0 + tile)):
+                        for x in range(tx0, min(w, tx0 + tile)):
+                            rows = range(0 if y == 0 else y + pad,
+                                         (h + 2 * pad if y == h - 1 else y + pad + 1))
+                            cols = range(0 if x == 0 else x + pad,
+                                         (w + 2 * pad if x == w - 1 else x + pad + 1))
+                            tot = torch.zeros(chans.stop - c0)
+                            for r in rows:
+                                row = torch.zeros_like(tot)
+                                for cc in cols:
+                                    a = torch.zeros_like(tot)
+                                    for d in range(af.NSHIFT ** 2):
+                                        dyi, dxi = divmod(d, af.NSHIFT)
+                                        qy, qx = r - dyi, cc - dxi
+                                        if not (0 <= qy < h and 0 <= qx < w):
+                                            continue
+                                        assert in_window(qy, qx), (y, x, qy, qx)
+                                        by, bx = dyi - oy[bb][qy][qx], dxi - ox[bb][qy][qx]
+                                        if 0 <= by < 6 and 0 <= bx < 6:
+                                            a = a + (vbox[bb, qy, qx, by, bx] * g[bb, qy, qx, chans]).float()
+                                    row = row + a
+                                tot = tot + row
+                            gsrc[bb, y, x, chans] = af._div25(tot)
+                            for j in range(af.BOX):
+                                sy = min(max(y + oy[bb][y][x] - pad + j // 6, 0), h - 1)
+                                sx = min(max(x + ox[bb][y][x] - pad + j % 6, 0), w - 1)
+                                assert in_window(sy, sx), (y, x, sy, sx)
+                                dots[bb, y, x, j] += (g[bb, y, x, chans]
+                                                      * src[bb, sy, sx, chans]).float().sum()
+    ga = torch.zeros((b, h, w, af.K2))
+    for t in range(af.K2):
+        ty, tx = divmod(t, af.K)
+        val = torch.zeros((b, h, w))
+        for cy in (0, 1):
+            sx = torch.zeros((b, h, w))
+            for cx in (0, 1):
+                sx = sx + ax[cx] * dots[..., (ty + cy) * 6 + tx + cx]
+            val = val + ay[cy] * sx
+        ga[..., t] = af._div25(val)
+    return gsrc, ga
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 4), (1, 1, 9, 4), (2, 7, 1, 2), (1, 5, 10, 6),
+                                   (1, 17, 9, 4), (1, 11, 13, 70)])
+def test_bwd_c_tiled_algorithm_matches_plain_version(shape, dtype):
+    """bwd_c_kernel's algorithm (_bwd_c_tiled) against the plain version:
+    gsrc_c bit-equal in f32 and bf16, g_attn within 1e-5 (f32) or 1e-4 (bf16)
+    of its largest entry (the channel sums in another order). Frames with
+    H or W equal to 1 (one pixel collects both margins), below 11, off the
+    8 x 8 tile grid, with interior tiles, and C = 70 in two channel groups."""
+    rng = np.random.RandomState(7)
+    b, h, w, c = shape
+    dt = getattr(torch, dtype)
+    src = T(rng.randn(b, h, w, c).astype(np.float32)).to(dt)
+    g_out = T(rng.randn(b, h, w, c).astype(np.float32)).to(dt)
+    attn = torch.softmax(T(rng.randn(b, h, w, af.K2).astype(np.float32)), -1)
+    flow = T((rng.rand(b, h, w, 2) * 4.9 - 2.95).astype(np.float32))
+    args = (src, *af.flow_fields(flow), attn, g_out)
+    got_gsrc, got_ga = _bwd_c_tiled(*args)
+    ref_gsrc, ref_ga = af.attn_fused_bwd_c_reference(*args)
+    assert torch.equal(got_gsrc, ref_gsrc)
+    tol = 1e-5 if dt == torch.float32 else 1e-4
+    assert float((got_ga - ref_ga).abs().max()) <= tol * float(ref_ga.abs().max())
+
+
 @pytest.mark.parametrize("kernel", ["fwd", "bwd_c", "bwd_a_gsrc", "bwd_a_dw"])
 def test_device_tensors_go_to_the_kernel(kernel, monkeypatch):
     """A tensor that is not on the CPU never reaches the plain version: the
@@ -177,20 +287,31 @@ class _FakeLibrary:
         return b"invalid argument"
 
 
-@pytest.mark.parametrize("case", ["odd_channels", "failed_launch", "failed_combine_bwd"])
+@pytest.mark.parametrize("case", ["odd_channels", "failed_launch", "failed_bwd_c",
+                                  "failed_combine_bwd"])
 def test_refused_launch_raises(case, monkeypatch):
     """A launch the kernels cannot take, or one that returns a CUDA error,
     raises a RuntimeError or ValueError naming the kernel and counts no
     launch. The card is stood in for: device checks pass, the entry point
     returns cudaErrorInvalidValue (1), the error string comes from the
-    library that holds the kernel."""
+    library that holds the kernel. Each entry point gets as many arguments
+    as its declared types (bwd_c: 10 pointers, then B, H, W, C, its channel
+    groups and the bf16 flag, then the stream)."""
     from hoig_torch.ops import _cuda, local_combine
 
-    asked = []
+    asked, passed = [], []
+
+    def entry_point(argtypes):
+        def launch(*args):
+            assert len(args) == len(argtypes)
+            passed.append(args)
+            return 1
+        return launch
+
     monkeypatch.setattr(_cuda, "require_cuda", lambda *tensors: None)
     monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
     monkeypatch.setattr(_cuda, "kernel", lambda lib, symbol, argtypes: (
-        asked.append(("kernel", lib)) or (lambda *args: 1)))
+        asked.append(("kernel", lib)) or entry_point(argtypes)))
     monkeypatch.setattr(_cuda, "_library", lambda lib: asked.append(("error", lib)) or
                         _FakeLibrary())
     _cuda.reset_launch_counts()
@@ -207,6 +328,12 @@ def test_refused_launch_raises(case, monkeypatch):
             af.attn_fused_fwd(meta(b, h, w, 2), meta(b, h, w, af.F), meta(af.K2, 2, af.F),
                               meta(af.F, af.K2), meta(1, af.K2), *fields)
         assert asked == [("kernel", "attn_fused"), ("error", "attn_fused")]
+    elif case == "failed_bwd_c":
+        src = meta(2, h, w, 130)
+        with pytest.raises(RuntimeError, match="attn_fused_bwd_c kernel launch failed"):
+            af.attn_fused_bwd_c(src, *[meta(2, h, w) for _ in range(4)], meta(2, h, w, af.K2), src)
+        assert asked == [("kernel", "attn_fused"), ("error", "attn_fused")]
+        assert passed[0][10:16] == (2, h, w, 130, 3, 0)  # ceil(130 / 64) channel groups, f32
     else:
         src_pad = meta(b, h + 2, w + 2, 2)
         with pytest.raises(RuntimeError, match="local_combine_bwd_src kernel launch failed"):
