@@ -8,7 +8,8 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from hoig_torch/csrc (one nvcc each, in
      parallel), report the build seconds, and hold the tile constants that
-     hoig_torch/ops/attn_fused.py repeats (TILING) against the library's;
+     hoig_torch/ops/attn_fused.py and local_combine.py repeat (TILING)
+     against the libraries';
   3. drive the serving path once (conditioning + generator_spade_attn at full
      width, 256 px, batch 4, bf16, shift engine, random weights from a seed)
      with every launch counter at 0, and record the inputs each kernel got;
@@ -56,15 +57,23 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      with VGG and the PatchGAN-4 discriminator, both Adam updates) at full
      width, 256 px, batch 4, bf16, shift engine: one step from launch
      counters at 0 with the backward kernels' inputs recorded, then bwd_src
-     and bwd_v held against their plain versions on those inputs (bf16 as
-     recorded and f32) and on ragged shapes, and timed; warm and timed steps
-     with the per-step launch counts (18 / 18 / 9 / 1 / 2) asserted, finite
-     metrics, every weight moved, D bit-equal across a gated step; the same
-     again with the bf16 remat defaults for the memory peak;
+     and bwd_v held against their plain versions on those inputs: bf16 as
+     recorded through the tensor-core kernels (counted as
+     local_combine_bwd_src_tc and local_combine_bwd_v_tc; each called twice
+     and held bit-equal to itself; dsrc within one bf16 ulp plus 1e-5 of the
+     largest sum of |v||g|, with the count of elements that differ; dv
+     within one ulp plus 1e-5 of |g||src|), and cast to f32 through the FP32
+     kernels (dsrc bit-equal); then timed beside their plain versions and
+     the FP32 kernels; warm and timed steps with the per-step launch counts
+     (18 / 18 / 9 / 1 / 2) asserted, finite metrics, every weight moved, D
+     bit-equal across a gated step; the same again with the bf16 remat
+     defaults for the memory peak;
   8. one profiler window over two serving calls and one training step with
      each engine splits the device time of each by kernel, and asserts 9
      launches of dg_kernel, dw_tc_kernel, bwd_c_kernel, bwd_c_gattn_kernel
-     and fold_kernel per fused step;
+     and fold_kernel per fused step, and 18 of combine_fwd_kernel and of
+     combine_bwd_src_tc_kernel, 9 of combine_bwd_v_tc_kernel and none of
+     the FP32 backward kernels per shift step;
   9. print the kernels line, the card line and, last, the result line.
 
 Details (result.json, profile.txt, build.txt: the compiler's report) go to
@@ -94,9 +103,10 @@ PEAK_BF16_TC_FLOPS = 989e12
 # source of each kernel and the TPU kernel it replaces
 KERNELS = {
     "local_combine": ("hoig_torch/csrc/local_combine.cu", "hoig_tpu/ops/local_combine.py:50"),
-    "local_combine_bwd_src": ("hoig_torch/csrc/local_combine.cu",
-                              "hoig_tpu/ops/local_combine.py:62"),
-    "local_combine_bwd_v": ("hoig_torch/csrc/local_combine.cu", "hoig_tpu/ops/local_combine.py:80"),
+    "local_combine_bwd_src_tc": ("hoig_torch/csrc/local_combine.cu",
+                                 "hoig_tpu/ops/local_combine.py:62"),
+    "local_combine_bwd_v_tc": ("hoig_torch/csrc/local_combine.cu",
+                               "hoig_tpu/ops/local_combine.py:80"),
     "rasterizer": ("hoig_torch/csrc/rasterizer.cu", "hoig_tpu/ops/rasterizer_pallas.py:45"),
     "table_gather": ("hoig_torch/csrc/table_gather.cu", "hoig_tpu/ops/table_gather.py:77"),
     "attn_fused_fwd_tc": ("hoig_torch/csrc/attn_fused.cu", "hoig_tpu/ops/attn_pallas.py:211"),
@@ -114,10 +124,11 @@ FUSED_BF16 = {"attn_fused_fwd": "attn_fused_fwd_tc", "attn_fused_bwd_c": "attn_f
               "attn_fused_bwd_a_dw": "attn_fused_bwd_a_dw_tc"}
 # launches per serving call, and per training step: each of the 9 attention
 # layers combines twice forward; both calls need dsrc, only the second (whose
-# coefficients come from the attention, not from the no-grad flow) needs dv
+# coefficients come from the attention, not from the no-grad flow) needs dv.
+# Under bf16 both backward kernels run on the tensor cores (counters *_tc).
 LAUNCHES_PER_CALL = {"local_combine": 18, "rasterizer": 1, "table_gather": 2}
-LAUNCHES_PER_STEP = {"local_combine": 18, "local_combine_bwd_src": 18, "local_combine_bwd_v": 9,
-                     "rasterizer": 1, "table_gather": 2}
+LAUNCHES_PER_STEP = {"local_combine": 18, "local_combine_bwd_src_tc": 18,
+                     "local_combine_bwd_v_tc": 9, "rasterizer": 1, "table_gather": 2}
 # the fused engine: one forward and one backward of each of the 9 layers
 FUSED_LAUNCHES_PER_CALL = {"attn_fused_fwd_tc": 9, "rasterizer": 1, "table_gather": 2}
 FUSED_LAUNCHES_PER_STEP = {**{k: 9 for k in FUSED_BF16.values()}, "rasterizer": 1,
@@ -290,86 +301,140 @@ def check_local_combine(calls) -> dict:
 
 
 def _dv_close(dv, ref, src, g, dtype_is_bf16: bool) -> tuple[bool, float]:
-    """bwd_v sums each channel dot in its own order (ascending channels, fused
-    multiply-adds), the plain version in torch.sum's. f32: |err| <= 1e-5 of
-    the largest |g[p]| * |src[q]| (the bound of any such dot). bf16: both
-    round an f32 dot to bf16, so they differ by at most one bf16 ulp (2^-7 of
-    the value) where the f32 sums straddle a rounding boundary."""
+    """bwd_v sums each channel dot in its own order (FP32: ascending channels,
+    fused multiply-adds; tensor cores: their order within each split of the
+    channels, the splits added in order), the plain version in torch.sum's.
+    f32: |err| <= 1e-5 of the largest |g[p]| * |src[q]| (the bound of any
+    such dot). bf16: both round an f32 dot to bf16, so they differ by at
+    most one bf16 ulp (2^-7 of the value) where the f32 sums straddle a
+    rounding boundary."""
     scale = float(g.float().norm(dim=-1).max() * src.float().norm(dim=-1).max())
     err = (dv.float() - ref.float()).abs()
     tol = 1e-5 * scale + (2.0 ** -7 * ref.float().abs() if dtype_is_bf16 else 0.0)
     return bool((err <= tol).all()), float(err.max())
 
 
+def _dsrc_close(ds, ref, v, g, radius: int) -> tuple[bool, float, int]:
+    """bf16 bwd_src on the tensor cores forms the plain version's exact
+    bf16 x bf16 products but adds them in the tensor cores' order, in f32,
+    and rounds once to bf16: within one bf16 ulp (2^-7 of the value) of the
+    plain value, plus 1e-5 of the largest sum of |v| |g| over the offsets
+    (the f32 sums' own difference, where the value is small). Returns (ok,
+    max abs err, number of elements that differ)."""
+    from hoig_torch.ops.local_combine import local_combine_backward_reference
+
+    mags, _ = local_combine_backward_reference(None, v.float().abs(), g.float().abs(), radius,
+                                               True, False)
+    err = (ds.float() - ref.float()).abs()
+    tol = 1e-5 * float(mags.max()) + 2.0 ** -7 * ref.float().abs()
+    return bool((err <= tol).all()), float(err.max()), int((ds != ref).sum())
+
+
 def check_local_combine_backward(calls) -> dict:
-    """B1-bwd-src and B1-bwd-v on every recorded backward call, bf16 as
-    recorded and the same inputs in f32. bwd_src repeats the plain loop's
-    order and rounding and is expected to agree exactly."""
+    """B1-bwd-src and B1-bwd-v on every recorded backward call: bf16 as
+    recorded, through the tensor-core kernels, each called twice and held
+    bit-equal to itself, dsrc within _dsrc_close and dv within _dv_close of
+    the plain versions (with the count of dsrc elements that differ); the
+    same inputs in f32 through the FP32 kernels, dsrc bit-equal (they repeat
+    the plain loop's order and rounding), dv within _dv_close. Timed: the
+    bf16 kernels (bound by bytes, or by their products at the tensor cores'
+    rate), their plain versions, and the FP32 kernels on the f32 inputs."""
     import torch
 
     from hoig_torch.ops.local_combine import (local_combine_backward,
                                               local_combine_backward_reference)
 
-    names = ("local_combine_bwd_src", "local_combine_bwd_v")
-    tot = {n: dict(ms=0.0, plain_ms=0.0, bytes=0.0, flops=0.0, err=0.0, calls=0) for n in names}
+    names = ("local_combine_bwd_src_tc", "local_combine_bwd_v_tc")
+    tot = {n: dict(ms=0.0, plain_ms=0.0, f32_ms=0.0, bytes=0.0, flops=0.0, err=0.0, calls=0,
+                   differ=0, elements=0) for n in names}
     rows = []
     for (src, v, g, radius, d_cols, need_src, need_v), _ in calls:
         src, v, g = (None if t is None else t.detach() for t in (src, v, g.contiguous()))
+        check(g.dtype == torch.bfloat16, f"the training step's backward is {g.dtype}, not bf16")
         b, h, w, c = g.shape
         k2 = (2 * radius + 1) ** 2
         flops = 2.0 * b * h * w * c * k2
         row = dict(shape=[b, h, w, c], radius=radius, dtype=str(g.dtype))
         for cast in (lambda t: t, lambda t: None if t is None else t.float()):
             s_, v_, g_ = cast(src), cast(v), cast(g)
+            lowp = g_.dtype == torch.bfloat16
             ds, dv = local_combine_backward(s_, v_, g_, radius, d_cols, need_src, need_v)
             rs, rv = local_combine_backward_reference(s_, v_, g_, radius, need_src, need_v)
             tag = str(g_.dtype)
+            if lowp:
+                ds2, dv2 = local_combine_backward(s_, v_, g_, radius, d_cols, need_src, need_v)
+                check(all(x is None or torch.equal(x, y) for x, y in ((ds, ds2), (dv, dv2))),
+                      f"the tensor-core backward gave other bits on a second call at {row}")
             if need_src:
-                check(torch.equal(ds, rs), f"bwd_src {tag} differs at {row}: {max_err(ds, rs)}")
+                if lowp:
+                    ok, e, n_diff = _dsrc_close(ds, rs, v_, g_, radius)
+                    check(ok, f"bwd_src_tc disagrees at {row}: max abs err {e}")
+                    t = tot[names[0]]
+                    t["err"] = max(t["err"], e)
+                    t["differ"] += n_diff
+                    t["elements"] += ds.numel()
+                    row.update(src_err=e, src_differ=n_diff)
+                else:
+                    check(torch.equal(ds, rs), f"bwd_src {tag} differs at {row}: {max_err(ds, rs)}")
             if need_v:
                 check(not dv[..., k2:].any(), f"bwd_v {tag}: columns past K^2 not zero at {row}")
-                ok, e = _dv_close(dv[..., :k2], rv, s_, g_, g_.dtype == torch.bfloat16)
+                ok, e = _dv_close(dv[..., :k2], rv, s_, g_, lowp)
                 check(ok, f"bwd_v {tag} disagrees at {row}: max abs err {e}")
                 tot[names[1]]["err"] = max(tot[names[1]]["err"], e)
         es = g.element_size()
+        g32 = g.float()
         if need_src:
             t = tot[names[0]]
+            v32 = v.float()
             ms = device_ms(lambda: local_combine_backward(None, v, g, radius, d_cols, True, False))
+            f32_ms = device_ms(lambda: local_combine_backward(None, v32, g32, radius, d_cols, True,
+                                                              False))
             plain = device_ms(lambda: local_combine_backward_reference(None, v, g, radius, True, False),
                               reps=2, behind_sleep=False)
             nbytes = (g.numel() + b * h * w * k2 + b * (h + 2 * radius) * (w + 2 * radius) * c) * es
-            bnd, by = bound_ms(nbytes, flops)
-            row.update(src_ms=ms, src_plain_ms=plain, src_bound_ms=bnd, src_bound_by=by)
-            for k_, val in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops),
-                            ("calls", 1)):
+            bnd, by = bound_ms(nbytes, 0.0, flops)
+            row.update(src_ms=ms, src_plain_ms=plain, src_f32_ms=f32_ms, src_bound_ms=bnd,
+                       src_bound_by=by)
+            for k_, val in (("ms", ms), ("plain_ms", plain), ("f32_ms", f32_ms), ("bytes", nbytes),
+                            ("flops", flops), ("calls", 1)):
                 t[k_] += val
+            del v32
         if need_v:
             t = tot[names[1]]
+            s32 = src.float()
             ms = device_ms(lambda: local_combine_backward(src, None, g, radius, d_cols, False, True))
+            f32_ms = device_ms(lambda: local_combine_backward(s32, None, g32, radius, d_cols, False,
+                                                              True))
             plain = device_ms(lambda: local_combine_backward_reference(src, None, g, radius, False, True),
                               reps=2, behind_sleep=False)
             nbytes = (src.numel() + g.numel() + b * h * w * d_cols) * es
-            bnd, by = bound_ms(nbytes, flops)
-            row.update(v_ms=ms, v_plain_ms=plain, v_bound_ms=bnd, v_bound_by=by)
-            for k_, val in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops),
-                            ("calls", 1)):
+            bnd, by = bound_ms(nbytes, 0.0, flops)
+            row.update(v_ms=ms, v_plain_ms=plain, v_f32_ms=f32_ms, v_bound_ms=bnd, v_bound_by=by)
+            for k_, val in (("ms", ms), ("plain_ms", plain), ("f32_ms", f32_ms), ("bytes", nbytes),
+                            ("flops", flops), ("calls", 1)):
                 t[k_] += val
+            del s32
         rows.append(row)
     out = {}
     for n in names:
         t = tot[n]
-        bnd, by = bound_ms(t["bytes"], t["flops"])
+        bnd, by = bound_ms(t["bytes"], 0.0, t["flops"])
+        f32_bnd, _ = bound_ms(t["bytes"] * 2, t["flops"])
         out[n] = dict(max_abs_err=t["err"], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bnd,
-                      bound_by=by, library_ms=None, calls=t["calls"], detail=rows)
-        log(f"  {n}: {t['calls']} calls; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, "
-            f"bound {bnd:.4f} ms ({by}); max abs err {t['err']:.3g}"
-            + (" (exact in bf16 and f32)" if n == names[0] else
+                      bound_by=by, library_ms=None, f32_ms=t["f32_ms"], f32_bound_ms=f32_bnd,
+                      calls=t["calls"], detail=rows)
+        if n == names[0]:
+            out[n].update(differ=t["differ"], elements=t["elements"])
+        log(f"  {n}: {t['calls']} calls; kernel {t['ms']:.4f} ms, FP32 path {t['f32_ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.2f} ms, bound {bnd:.4f} ms ({by}); max abs err {t['err']:.3g}"
+            + (f" (bf16 one ulp + 1e-5 of the largest sum of |v||g|; {t['differ']} of "
+               f"{t['elements']} elements differ; f32 exact)" if n == names[0] else
                " (f32 tol 1e-5 |g||src|, bf16 one ulp)"))
     for r in rows:
         log(f"    {r['shape']} R={r['radius']}: bwd_src {r['src_ms']:.4f} ms (bound "
-            f"{r['src_bound_ms']:.4f})"
-            + (f", bwd_v {r['v_ms']:.4f} ms (bound {r['v_bound_ms']:.4f})" if "v_ms" in r
-               else ", dv not needed"))
+            f"{r['src_bound_ms']:.4f}, FP32 {r['src_f32_ms']:.4f})"
+            + (f", bwd_v {r['v_ms']:.4f} ms (bound {r['v_bound_ms']:.4f}, FP32 {r['v_f32_ms']:.4f})"
+               if "v_ms" in r else ", dv not needed"))
     return out
 
 
@@ -453,7 +518,8 @@ def check_ragged_shapes() -> None:
     grid, a partial face chunk, a narrow table."""
     import torch
 
-    from hoig_torch.ops.local_combine import (local_combine, local_combine_backward_reference,
+    from hoig_torch.ops.local_combine import (local_combine, local_combine_backward,
+                                              local_combine_backward_reference,
                                               local_combine_reference)
     from hoig_torch.ops.rasterizer import rasterize_fim_wim
     from hoig_torch.ops.rasterizer_cuda import rasterize_fim_wim_auto
@@ -472,6 +538,11 @@ def check_ragged_shapes() -> None:
             g = randn(b, h, w, c).to(dtype)
             rs, rv = local_combine_backward_reference(src, v, g, r)
             k2 = (2 * r + 1) ** 2
+            if dtype == torch.bfloat16:  # the tensor-core kernels add in a fixed order
+                once, again = (local_combine_backward(src, v, g, r, v.shape[3]) for _ in range(2))
+                check(all(torch.equal(x, y) for x, y in zip(once, again)),
+                      f"the tensor-core backward gave other bits on a second call at "
+                      f"{tuple(src.shape)} R={r}")
             for need_src, need_v in ((True, True), (True, False), (False, True)):
                 s_ = src.clone().requires_grad_(need_src)
                 v_ = v.clone().requires_grad_(need_v)
@@ -479,8 +550,11 @@ def check_ragged_shapes() -> None:
                 what = f"at {tuple(src.shape)} R={r} {dtype} needs=({need_src}, {need_v})"
                 check((s_.grad is not None) == need_src and (v_.grad is not None) == need_v,
                       f"LocalCombine gave the wrong gradients {what}")
-                if need_src:
+                if need_src and dtype == torch.float32:
                     check(torch.equal(s_.grad, rs), f"bwd_src differs {what}")
+                elif need_src:
+                    ok, e, _ = _dsrc_close(s_.grad, rs, v, g, r)
+                    check(ok, f"bwd_src_tc differs {what}: max abs err {e}")
                 if need_v:
                     ok, e = _dv_close(v_.grad[..., :k2], rv, src, g, dtype == torch.bfloat16)
                     check(ok and not v_.grad[..., k2:].any(), f"bwd_v differs {what}: {e}")
@@ -722,7 +796,7 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
     n_d = sum(p.numel() for p in state.d.parameters())
     rec = Recorder()
     metrics, launches = recorded_step(state, step, batch, LAUNCHES_PER_STEP, rec)
-    check(len(rec.calls["local_combine_backward"]) == LAUNCHES_PER_STEP["local_combine_bwd_src"],
+    check(len(rec.calls["local_combine_backward"]) == LAUNCHES_PER_STEP["local_combine_bwd_src_tc"],
           f"{len(rec.calls['local_combine_backward'])} backward calls recorded")
     results = check_local_combine_backward(rec.calls["local_combine_backward"])
     for name in results:
@@ -1338,6 +1412,7 @@ def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
 # device kernel name -> operator class, first match wins
 KERNEL_CLASSES = (
     ("hand-written kernels", ("combine_fwd_kernel", "combine_bwd_src_kernel", "combine_bwd_v_kernel",
+                              "combine_bwd_src_tc_kernel", "combine_bwd_v_tc_kernel",
                               "raster_kernel", "gather_kernel", "conv5_kernel", "conv5_tc_kernel",
                               "fwd_pixel_kernel", "bwd_c_kernel", "bwd_c_gattn_kernel",
                               "fold_kernel", "dg_kernel", "dw_kernel", "dw_tc_kernel",
@@ -1479,9 +1554,14 @@ def main() -> int:
     log(f"[2] kernels built in {build_s:.1f} s")
     from hoig_torch.ops import attn_fused as af
 
+    from hoig_torch.ops import local_combine as lc
+
     tiling = af.kernel_tiling()
     check(tiling == af.TILING, f"attn_fused.cu's tile constants {tiling} != TILING {af.TILING}")
     log(f"  attn_fused tile constants agree with hoig_torch/ops/attn_fused.py: {tiling}")
+    tiling = lc.kernel_tiling()
+    check(tiling == lc.TILING, f"local_combine.cu's tile constants {tiling} != TILING {lc.TILING}")
+    log(f"  local_combine tile constants agree with hoig_torch/ops/local_combine.py: {tiling}")
 
     # 3. main path once, counters from 0, kernel inputs recorded
     t0 = time.perf_counter()
@@ -1553,6 +1633,17 @@ def main() -> int:
         got = {k: hw.get(k, {}).get("count", 0) for k in want}
         log(f"  profiler hoig_train_fused: launches per step {got}")
         check(got == want, f"fused step launches by kernel {got} != {want}")
+    # the shift step's backward combines run on the tensor cores under bf16:
+    # both sides of the R = 5 combine and dsrc of the R = 3 one, per layer
+    hw = profile.get("hoig_train", {}).get("hand_written")
+    want = {"combine_bwd_src_tc_kernel": 18, "combine_bwd_v_tc_kernel": 9,
+            "combine_bwd_src_kernel": 0, "combine_bwd_v_kernel": 0, "combine_fwd_kernel": 18}
+    if hw is None:
+        log("  profiler: the shift step's launches by kernel not measured")
+    else:
+        got = {k: hw.get(k, {}).get("count", 0) for k in want}
+        log(f"  profiler hoig_train: launches per step {got}")
+        check(got == want, f"shift step launches by kernel {got} != {want}")
 
     # 9. report
     kernels = []

@@ -1,7 +1,8 @@
 """Build, bind and count the hand-written CUDA kernels of the port.
 
 Each source in `hoig_torch/csrc/` has a plain C interface (no PyTorch
-headers), so `nvcc` turns it into a shared library in seconds. All sources
+headers; the tensor-core sources share `hopper.cuh`), so `nvcc` turns it
+into a shared library in seconds. All sources
 are compiled at once, one `nvcc` process each, the first time any kernel is
 needed; the libraries are loaded with `ctypes` and cached under
 `build/hoig_torch_kernels/` by a hash of source and flags, so a checkout
@@ -65,8 +66,10 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[list, Path]:
     src, extra = SOURCES[name]
     flags = _ARCH + _COMMON + extra
+    # the shared headers too: a change there rebuilds every source
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / src).read_bytes() + " ".join(flags).encode()
+        (CSRC / src).read_bytes() + headers + " ".join(flags).encode()
     ).hexdigest()[:16]
     return flags, BUILD_DIR / f"{name}-{digest}.so"
 
