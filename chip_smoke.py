@@ -14,14 +14,22 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      width, 256 px, batch 4, bf16, shift engine, random weights from a seed)
      with every launch counter at 0, and record the inputs each kernel got;
      then hold each kernel against its plain PyTorch version on exactly those
-     inputs and time kernel, plain version, library yardstick and bound;
-     and hold them again on small ragged shapes off the tile grid;
+     inputs and time kernel, plain version, library yardstick and bound (the
+     B1 forward: bf16 on the tensor cores, counted as local_combine_tc, its
+     window staged by TMA on all 18 calls, within one bf16 ulp plus 1e-5 of
+     the largest sum of |v||src| with the count of elements that differ,
+     bit-equal to itself on a second call; the same inputs cast to f32
+     through the FP32 kernel, bit-equal); hold them again on small ragged
+     shapes off the tile grid (the forward also on shapes that take the
+     element-wise staging, partial slabs and a frame smaller than the TMA
+     box), and the rasterizer on scenes with exact ties (duplicated faces,
+     faces of one plane; one scene whose tile lists overflow);
   4. compare the card with the CPU: the conditioning at 128 px, batch 2, and
      the full-width generator in f32 (TF32 off) at 128 px, batch 1, its
      outputs and the gradient of a fixed scalar of them w.r.t. every weight;
   5. time the serving call (>= 5 calls after warm-up), assert 18 / 1 / 2
-     launches of the combine / rasterizer / gather kernels per call and
-     finite outputs;
+     launches of the combine (local_combine_tc) / rasterizer / gather
+     kernels per call and finite outputs;
   6. the fused attention engine (corner_engine "pallas", the four B4
      kernels of hoig_torch/csrc/attn_fused.cu; under bf16, B4-fwd's phase A,
      B4-bwd-a-gsrc's projection and B4-bwd-a-dw run on the tensor cores,
@@ -71,9 +79,10 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
   8. one profiler window over two serving calls and one training step with
      each engine splits the device time of each by kernel, and asserts 9
      launches of dg_kernel, dw_tc_kernel, bwd_c_kernel, bwd_c_gattn_kernel
-     and fold_kernel per fused step, and 18 of combine_fwd_kernel and of
-     combine_bwd_src_tc_kernel, 9 of combine_bwd_v_tc_kernel and none of
-     the FP32 backward kernels per shift step;
+     and fold_kernel per fused step, and 18 of combine_fwd_tc_kernel and of
+     combine_bwd_src_tc_kernel, 9 of combine_bwd_v_tc_kernel, one of
+     bin_kernel and raster_kernel and none of the FP32 combine kernels per
+     shift step (and per shift serving call: 18, 1, 1, none);
   9. print the kernels line, the card line and, last, the result line.
 
 Details (result.json, profile.txt, build.txt: the compiler's report) go to
@@ -102,7 +111,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
 # source of each kernel and the TPU kernel it replaces
 KERNELS = {
-    "local_combine": ("hoig_torch/csrc/local_combine.cu", "hoig_tpu/ops/local_combine.py:50"),
+    "local_combine_tc": ("hoig_torch/csrc/local_combine.cu", "hoig_tpu/ops/local_combine.py:50"),
     "local_combine_bwd_src_tc": ("hoig_torch/csrc/local_combine.cu",
                                  "hoig_tpu/ops/local_combine.py:62"),
     "local_combine_bwd_v_tc": ("hoig_torch/csrc/local_combine.cu",
@@ -125,9 +134,10 @@ FUSED_BF16 = {"attn_fused_fwd": "attn_fused_fwd_tc", "attn_fused_bwd_c": "attn_f
 # launches per serving call, and per training step: each of the 9 attention
 # layers combines twice forward; both calls need dsrc, only the second (whose
 # coefficients come from the attention, not from the no-grad flow) needs dv.
-# Under bf16 both backward kernels run on the tensor cores (counters *_tc).
-LAUNCHES_PER_CALL = {"local_combine": 18, "rasterizer": 1, "table_gather": 2}
-LAUNCHES_PER_STEP = {"local_combine": 18, "local_combine_bwd_src_tc": 18,
+# Under bf16 the forward and both backward kernels run on the tensor cores
+# (counters *_tc). The rasterizer's wrapper counts one call (two kernels).
+LAUNCHES_PER_CALL = {"local_combine_tc": 18, "rasterizer": 1, "table_gather": 2}
+LAUNCHES_PER_STEP = {"local_combine_tc": 18, "local_combine_bwd_src_tc": 18,
                      "local_combine_bwd_v_tc": 9, "rasterizer": 1, "table_gather": 2}
 # the fused engine: one forward and one backward of each of the 9 layers
 FUSED_LAUNCHES_PER_CALL = {"attn_fused_fwd_tc": 9, "rasterizer": 1, "table_gather": 2}
@@ -208,8 +218,9 @@ class Recorder:
     """Wraps the kernel wrappers at their call sites and keeps their inputs."""
 
     def __init__(self):
-        # "local_combine_backward": (src_pad, v, g, R, d_cols, need_src, need_v) of each
-        # backward call, the inputs of the bwd_src and bwd_v kernels
+        # "local_combine_tc": (src_pad, v, R) of each forward call;
+        # "local_combine_backward": (src_pad, v, g, R, d_cols, need_src, need_v)
+        # of each backward call, the inputs of the bwd_src and bwd_v kernels
         self.calls = {name: [] for name in (*KERNELS, *FUSED, "local_combine_backward")}
 
     def wrap(self, name, fn):
@@ -229,7 +240,7 @@ def recording(rec: Recorder):
     import hoig_torch.ops.rasterizer_cuda as rc
 
     sites = [(af, name, name) for name in FUSED] + [
-             (gen, "local_combine", "local_combine"),
+             (gen, "local_combine", "local_combine_tc"),
              (lc, "local_combine_backward", "local_combine_backward"),
              (cond, "rasterize_fim_wim_auto", "rasterizer"),
              (rc, "gather_rows", "table_gather"),
@@ -257,47 +268,85 @@ def bound_ms(nbytes: float, flops: float, tc_flops: float = 0.0) -> tuple[float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _fwd_close(out, ref, src, v, radius: int) -> tuple[bool, float, int]:
+    """bf16 B1-fwd on the tensor cores forms the plain loop's exact bf16 x
+    bf16 products but adds them in the tensor cores' order, in f32, and
+    rounds once to bf16: within one bf16 ulp (2^-7 of the value) of the
+    plain value, plus 1e-5 of the largest sum of |v| |src| over the offsets
+    (the f32 sums' own difference, where the value is small). Returns (ok,
+    max abs err, number of elements that differ)."""
+    from hoig_torch.ops.local_combine import local_combine_reference
+
+    mags = local_combine_reference(src.float().abs(), v.float().abs(), radius)
+    err = (out.float() - ref.float()).abs()
+    tol = 1e-5 * float(mags.max()) + 2.0 ** -7 * ref.float().abs()
+    return bool((err <= tol).all()), float(err.max()), int((out != ref).sum())
+
+
 def check_local_combine(calls) -> dict:
-    """B1 on the 18 recorded (src_pad, v, R) calls: bf16 as recorded, and the
-    same inputs in f32. The kernel repeats the plain loop's order and
-    rounding, so both are expected to agree exactly."""
+    """B1-fwd on the 18 recorded (src_pad, v, R) calls: bf16 as recorded
+    through the tensor-core kernel (every call's window staged by TMA),
+    within _fwd_close of the plain loop and bit-equal to itself on a second
+    call; the same inputs cast to f32 through the FP32 kernel, which repeats
+    the plain loop's order and rounding: bit-equal. Timed: the bf16 kernel
+    (bound by bytes, or by its products at the tensor cores' rate), the FP32
+    kernel on the f32 inputs (its own bound: FP32 operations), the plain
+    version."""
     import torch
 
-    from hoig_torch.ops.local_combine import local_combine, local_combine_reference
+    from hoig_torch.ops.local_combine import fwd_staging, local_combine, local_combine_reference
 
-    rows, err32, err16 = [], 0.0, 0.0
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, flops=0.0)
+    rows = []
+    tot = dict(ms=0.0, plain_ms=0.0, f32_ms=0.0, bytes=0.0, flops=0.0, err=0.0, differ=0,
+               elements=0)
     for (src, v, radius), _ in calls:
+        src, v = src.detach(), v.detach()
+        check(src.dtype == torch.bfloat16, f"the serving path's combine is {src.dtype}, not bf16")
+        staging = fwd_staging(src)
+        check(staging == "tma", f"the combine at {tuple(src.shape)} took the {staging} staging")
         out = local_combine(src, v, radius)
+        again = local_combine(src, v, radius)
         ref = local_combine_reference(src, v, radius)
-        e16 = max_err(out, ref)
-        check(torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2),
-              f"local_combine bf16 disagrees: {e16}")
+        check(torch.equal(out, again), f"B1-fwd gave other bits on a second call at {tuple(src.shape)}")
+        ok, e16, n_diff = _fwd_close(out, ref, src, v, radius)
+        check(ok, f"B1-fwd bf16 disagrees at {tuple(src.shape)} R={radius}: max abs err {e16}")
         s32, v32 = src.float(), v.float()
-        e32 = max_err(local_combine(s32, v32, radius), local_combine_reference(s32, v32, radius))
-        check(e32 <= 1e-5, f"local_combine f32 disagrees: {e32}")
-        err16, err32 = max(err16, e16), max(err32, e32)
+        out32 = local_combine(s32, v32, radius)
+        check(torch.equal(out32, local_combine_reference(s32, v32, radius)),
+              f"B1-fwd f32 not bit-equal at {tuple(src.shape)} R={radius}")
         b, h, w, c = out.shape
         k2 = (2 * radius + 1) ** 2
         nbytes = (src.numel() + b * h * w * k2 + out.numel()) * src.element_size()
         flops = 2.0 * b * h * w * c * k2
         ms = device_ms(lambda: local_combine(src, v, radius))
+        f32_ms = device_ms(lambda: local_combine(s32, v32, radius))
         plain = device_ms(lambda: local_combine_reference(src, v, radius), reps=3,
                           behind_sleep=False)
-        bnd, by = bound_ms(nbytes, flops)
-        rows.append(dict(shape=list(src.shape), radius=radius, dtype=str(src.dtype), ms=ms,
-                         plain_ms=plain, bound_ms=bnd, bound_by=by, err_bf16=e16, err_f32=e32))
-        for k, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd), ("bytes", nbytes),
-                       ("flops", flops)):
+        bnd, by = bound_ms(nbytes, 0.0, flops)
+        f32_bnd, _ = bound_ms(nbytes * 2, flops)
+        rows.append(dict(shape=list(src.shape), radius=radius, dtype=str(src.dtype), staging=staging,
+                         ms=ms, f32_ms=f32_ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         f32_bound_ms=f32_bnd, err_bf16=e16, differ=n_diff))
+        for k, val in (("ms", ms), ("plain_ms", plain), ("f32_ms", f32_ms), ("bytes", nbytes),
+                       ("flops", flops), ("differ", n_diff), ("elements", out.numel())):
             tot[k] += val
-    _, by = bound_ms(tot["bytes"], tot["flops"])
-    log(f"  local_combine: {len(calls)} calls, max err bf16 {err16:.3g} (atol/rtol 1e-2), "
-        f"f32 {err32:.3g} (atol 1e-5)")
+        tot["err"] = max(tot["err"], e16)
+        del s32, v32, out32
+    bnd, by = bound_ms(tot["bytes"], 0.0, tot["flops"])
+    f32_bnd, f32_by = bound_ms(tot["bytes"] * 2, tot["flops"])
+    log(f"  local_combine_tc (B1-fwd): {len(calls)} calls, staging "
+        f"{sorted({r['staging'] for r in rows})}; kernel {tot['ms']:.4f} ms, FP32 path "
+        f"{tot['f32_ms']:.4f} ms (bound {f32_bnd:.4f}, {f32_by}), plain {tot['plain_ms']:.2f} ms, "
+        f"bound {bnd:.4f} ms ({by}; {tot['bytes'] / 1e6:.1f} MB, {tot['flops'] / 1e9:.2f} GFLOP bf16);"
+        f" max abs err {tot['err']:.3g} (bf16 one ulp + 1e-5 of the largest sum of |v||src|; "
+        f"{tot['differ']} of {tot['elements']} elements differ; f32 exact); a second call bit-equal")
     for r in rows:
-        log(f"    {r['shape']} R={r['radius']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms,"
-            f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    return dict(max_abs_err=max(err16, err32), ms=tot["ms"], plain_ms=tot["plain_ms"],
-                bound_ms=tot["bound_ms"], bound_by=by, library_ms=None, detail=rows)
+        log(f"    {r['shape']} R={r['radius']}: kernel {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}),"
+            f" FP32 {r['f32_ms']:.4f}, plain {r['plain_ms']:.3f}, {r['differ']} differ")
+    return dict(max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bnd,
+                bound_by=by, library_ms=None, f32_ms=tot["f32_ms"], f32_bound_ms=f32_bnd,
+                differ=tot["differ"], elements=tot["elements"], bytes=tot["bytes"],
+                bf16_flop=tot["flops"], staging=[r["staging"] for r in rows], detail=rows)
 
 
 def _dv_close(dv, ref, src, g, dtype_is_bf16: bool) -> tuple[bool, float]:
@@ -449,14 +498,44 @@ def _bbox_pairs(bbox, s: int) -> float:
     return float((n[..., 0] * n[..., 1]).sum())
 
 
+def _listed_pairs(bbox, edge, s: int, tile: int) -> tuple[float, float]:
+    """(pixel, face) pairs of the rasterizer's tile lists: each face at the
+    64 pixels of every 8x8 tile its box meets (the tile's outer pixel
+    centres padded by one pixel pitch), and of those the pairs bin_kernel
+    keeps: none of the face's edge functions below its rounding margin at
+    all four corner pixel centres of the tile."""
+    import torch
+
+    t = torch.arange(-(-s // tile), device=bbox.device, dtype=torch.float32)
+    c0 = (2.0 * (t * tile) + 1.0 - s) / s
+    c1 = (2.0 * (t * tile + tile - 1) + 1.0 - s) / s
+    pitch = torch.tensor(2.0, device=bbox.device) / s
+    mx = (bbox[..., 0, None] <= c1 + pitch) & (bbox[..., 1, None] >= c0 - pitch)
+    my = (bbox[..., 2, None] <= c1 + pitch) & (bbox[..., 3, None] >= c0 - pitch)
+    boxed = my[..., :, None] & mx[..., None, :]  # (B, F, T, T)
+    big = torch.maximum(c0.abs(), c1.abs())
+    keep = boxed.clone()
+    for k in range(3):
+        a, b, c = (edge[..., k, j, None, None].float() for j in range(3))
+        top = torch.full(boxed.shape, float("-inf"), device=bbox.device)
+        for cx in (c0, c1):
+            for cy in (c0, c1):
+                top = torch.maximum(top, (cx * a + cy[:, None] * b) + c)
+        keep &= ~(top < -(16.0 * 5.9604645e-8) * ((a.abs() * big + b.abs() * big[:, None]) + c.abs()))
+    n = tile * tile
+    return float(boxed.sum()) * n, float(keep.sum()) * n
+
+
 def check_rasterizer(calls) -> dict:
-    """B2 on the recorded 2B x 256^2 scene: the z-buffer kernel against the
-    plain chunked reduction (indices equal), and the whole fim/wim/rows entry
+    """B2 on the recorded 2B x 256^2 scene: the z-buffer kernels (binning
+    into per-tile face lists, then the z-buffer over them) against the plain
+    chunked reduction (indices equal), and the whole fim/wim/rows entry
     against the plain rasterizer (fim and rows equal, wim atol 1e-4)."""
     import torch
 
     from hoig_torch.ops.rasterizer import _face_setup, rasterize_fim_wim, zbuffer_reference
-    from hoig_torch.ops.rasterizer_cuda import face_bbox, rasterize_fim_wim_auto, rasterize_zbuffer
+    from hoig_torch.ops.rasterizer_cuda import (TILE, face_bbox, rasterize_fim_wim_auto,
+                                                rasterize_zbuffer)
 
     (fv, valid), kw = calls[0]
     s, near, far, attrs = kw["image_size"], kw["near"], kw["far"], kw["attrs"]
@@ -475,15 +554,90 @@ def check_rasterizer(calls) -> dict:
     b, f = valid.shape
     nbytes = b * f * 16 * 4 + b * s * s * 4
     pairs = _bbox_pairs(bbox, s)
+    boxed, listed = _listed_pairs(bbox, setup["edge"], s, TILE)
     flops = pairs * 16  # 3 edge planes + 1 depth plane, 2 mul + 2 add each
     ms = device_ms(lambda: rasterize_zbuffer(setup, bbox, s, near, far))
     plain = device_ms(lambda: zbuffer_reference(setup, s, near, far), reps=3, behind_sleep=False)
     bnd, by = bound_ms(nbytes, flops)
+    again = rasterize_zbuffer(setup, bbox, s, near, far)
+    check(torch.equal(idx, again), "rasterizer gave other indices on a second call")
     log(f"  rasterizer: faces {tuple(valid.shape)}, {s}^2, hit pixels {hits}, box pairs {pairs:.4g},"
-        f" idx diffs 0, wim err {e_wim:.3g}; kernel {ms:.4f} ms, plain {plain:.3f} ms,"
-        f" bound {bnd:.5f} ms ({by})")
+        f" pairs of the tiles the boxes meet {boxed:.4g}, of those the lists keep {listed:.4g},"
+        f" idx diffs 0 (and 0 on a second call), wim err {e_wim:.3g}; kernels {ms:.4f} ms, plain "
+        f"{plain:.3f} ms, bound {bnd:.5f} ms ({by})")
     return dict(max_abs_err=e_wim, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=None, detail=dict(hits=hits, box_pairs=pairs))
+                library_ms=None, detail=dict(hits=hits, box_pairs=pairs, tile_box_pairs=boxed,
+                                                     listed_pairs=listed))
+
+
+def tie_scene(gen, b: int, f: int, copies: int):
+    """(B, F, 3, 3) faces with exact ties, all valid: `copies` copies of one
+    large triangle at random indices, half of the rest overlapping
+    triangles of one fronto-parallel plane (z = 2, the large one's too), a
+    quarter of those repeated at other indices, the rest random."""
+    import torch
+
+    fv = torch.randn(b, f, 3, 3, device="cuda", generator=gen) * 0.4
+    fv[..., 2] = fv[..., 2].abs() + 1.5
+    big = torch.tensor([[-0.9, -0.8, 2.0], [0.85, -0.7, 2.0], [0.1, 0.95, 2.0]], device="cuda")
+    corner = torch.tensor([[0.0, 0.0], [0.5, 0.05], [0.1, 0.45]], device="cuda")
+    for bi in range(b):
+        idx = torch.randperm(f, device="cuda", generator=gen)
+        fv[bi, idx[:copies]] = big
+        flat = idx[copies:copies + (f - copies) // 2]
+        fv[bi, flat, :, :2] = (torch.rand(len(flat), 1, 2, device="cuda", generator=gen) * 1.6 - 0.8
+                               + corner)
+        fv[bi, flat, :, 2] = 2.0
+        rep = idx[copies + (f - copies) // 2:][:len(flat) // 4]
+        fv[bi, rep] = fv[bi, flat[:len(rep)]]
+    return fv, torch.ones(b, f, dtype=torch.bool, device="cuda")
+
+
+def check_rasterizer_ties() -> dict:
+    """B2 where the winner rule is put to the test: exact ties in inverse
+    depth (duplicated faces, faces of one plane), whose lowest index must
+    win whatever the order of a tile's list. Two scenes: 2 x 300 faces at
+    100 px (lists that hold every face), and 2 x 1200 faces with 1100
+    copies of one triangle at 128 px (every tile under it counts more than
+    the lists' capacity and walks all faces). Indices bit-equal to the
+    plain z-buffer, also on a second call; fim equal and wim within 1e-4
+    of the plain rasterizer."""
+    import torch
+
+    from hoig_torch.ops.rasterizer import _face_setup, rasterize_fim_wim, zbuffer_reference
+    from hoig_torch.ops.rasterizer_cuda import (LIST_CAP, face_bbox, rasterize_fim_wim_auto,
+                                                rasterize_zbuffer)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for b, f, copies, s in ((2, 300, 40, 100), (2, 1200, 1100, 128)):
+        fv, valid = tie_scene(gen, b, f, copies)
+        setup = _face_setup(fv, valid, s)
+        bbox = face_bbox(fv, setup["keep"])
+        ref = zbuffer_reference(setup, s, 0.1, 100.0)
+        got = rasterize_zbuffer(setup, bbox, s, 0.1, 100.0)
+        again = rasterize_zbuffer(setup, bbox, s, 0.1, 100.0)
+        n_diff = int((got != ref).sum())
+        check(n_diff == 0 and torch.equal(got, again),
+              f"rasterizer tie scene {(b, f, copies, s)}: {n_diff} pixels differ from the plain "
+              f"z-buffer, second call equal {torch.equal(got, again)}")
+        # pixels won by a face that has an exact copy elsewhere: there the
+        # lowest index of the copies had to win
+        won = ref.long().clamp_min(0)
+        twins = ((fv[torch.arange(b, device="cuda")[:, None], won][:, :, None] == fv[:, None])
+                 .flatten(3).all(-1).sum(-1) > 1) & (ref >= 0)
+        fim, wim = rasterize_fim_wim_auto(fv, valid, image_size=s)
+        fim_r, wim_r = rasterize_fim_wim(fv, valid, image_size=s)
+        check(torch.equal(fim, fim_r) and max_err(wim, wim_r) <= 1e-4,
+              f"rasterizer tie scene {(b, f, copies, s)}: fim/wim differ from the plain rasterizer")
+        key = f"{b}x{f} faces, {copies} copies, {s} px"
+        out[key] = dict(hit=int((ref >= 0).sum()), tied=int(twins.sum()),
+                        overflow=copies > min(f, LIST_CAP))
+    log("  rasterizer tie scenes: " + "; ".join(
+        f"{k}: {v['hit']} hit pixels, {v['tied']} won by a face with an exact copy"
+        + (" (lists over capacity: tiles walk all faces)" if v["overflow"] else "")
+        for k, v in out.items()) + "; indices bit-equal to the plain z-buffer, twice")
+    return out
 
 
 def check_table_gather(calls) -> dict:
@@ -518,7 +672,7 @@ def check_ragged_shapes() -> None:
     grid, a partial face chunk, a narrow table."""
     import torch
 
-    from hoig_torch.ops.local_combine import (local_combine, local_combine_backward,
+    from hoig_torch.ops.local_combine import (fwd_staging, local_combine, local_combine_backward,
                                               local_combine_backward_reference,
                                               local_combine_reference)
     from hoig_torch.ops.rasterizer import rasterize_fim_wim
@@ -527,12 +681,27 @@ def check_ragged_shapes() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+
+    def forward_agrees(src, v, r) -> str:
+        """The forward against the plain loop: f32 bit-equal, bf16 within
+        _fwd_close and bit-equal to itself; returns its staging route."""
+        out, ref = local_combine(src, v, r), local_combine_reference(src, v, r)
+        what = f"at {tuple(src.shape)} R={r} {src.dtype}"
+        if src.dtype == torch.float32:
+            check(torch.equal(out, ref), f"local_combine differs {what}")
+            return "fp32"
+        ok, e, _ = _fwd_close(out, ref, src, v, r)
+        check(ok, f"local_combine_tc differs {what}: max abs err {e}")
+        check(torch.equal(out, local_combine(src, v, r)),
+              f"local_combine_tc gave other bits on a second call {what}")
+        return fwd_staging(src)
+
+    routes = []
     for dtype in (torch.float32, torch.bfloat16):
         for b, h, w, c, r, extra in ((2, 13, 11, 6, 3, 15), (1, 9, 20, 70, 5, 0)):
             src = randn(b, h + 2 * r, w + 2 * r, c).to(dtype)
             v = randn(b, h, w, (2 * r + 1) ** 2 + extra).to(dtype)
-            check(torch.equal(local_combine(src, v, r), local_combine_reference(src, v, r)),
-                  f"local_combine differs at {tuple(src.shape)} R={r} {dtype}")
+            routes.append(forward_agrees(src, v, r))
             # the backward kernels through the autograd Function: both sides,
             # then each side alone (needs_input_grad with only one of them)
             g = randn(b, h, w, c).to(dtype)
@@ -558,6 +727,23 @@ def check_ragged_shapes() -> None:
                 if need_v:
                     ok, e = _dv_close(v_.grad[..., :k2], rv, src, g, dtype == torch.bfloat16)
                     check(ok and not v_.grad[..., k2:].any(), f"bwd_v differs {what}: {e}")
+    # the bf16 forward alone: TMA with a partial slab (24, 72 channels), a
+    # frame smaller than the TMA box (3 x 5 at R = 5: 13 x 15 padded, boxes
+    # of 18 x 18), R = 1 and 2, four channel splits of one slab each, and
+    # eight slabs through one block's ring of stages (128 tiles: no split);
+    # the element-wise staging with whole 16-byte units on a base 2 bytes off
+    for b, h, w, c, r, extra in ((1, 9, 20, 24, 5, 0), (2, 13, 11, 72, 3, 7), (1, 3, 5, 16, 5, 0),
+                                 (2, 17, 9, 40, 1, 0), (1, 10, 6, 200, 2, 3),
+                                 (2, 64, 64, 512, 3, 0)):
+        src = randn(b, h + 2 * r, w + 2 * r, c).bfloat16()
+        v = randn(b, h, w, (2 * r + 1) ** 2 + extra).bfloat16()
+        routes.append(forward_agrees(src, v, r))
+    b, h, w, c, r = 1, 9, 20, 64, 5
+    flat = randn(b * (h + 2 * r) * (w + 2 * r) * c + 1).bfloat16()
+    src = flat[1:].view(b, h + 2 * r, w + 2 * r, c)
+    routes.append(forward_agrees(src, randn(b, h, w, 121).bfloat16(), r))
+    check(routes.count("tma") == 6 and routes.count("elementwise") == 3,
+          f"the ragged forward calls took the stagings {routes}")
     fv = randn(2, 300, 3, 3) * 0.4
     fv[..., 2] = fv[..., 2].abs() + 1.5
     valid = torch.rand(2, 300, device="cuda", generator=gen) > 0.1
@@ -569,8 +755,8 @@ def check_ragged_shapes() -> None:
     idx = torch.randint(0, 77, (3, 1000), device="cuda", generator=gen, dtype=torch.int32)
     check(torch.equal(gather_rows(table, idx), gather_rows_reference(table, idx)),
           "table_gather differs on a (3, 77, 3) table")
-    log(f"  ragged shapes: all five kernels agree with their plain versions "
-        f"(100 px scene: {int((fim >= 0).sum())} hit pixels)")
+    log(f"  ragged shapes: all six kernels agree with their plain versions "
+        f"(100 px scene: {int((fim >= 0).sum())} hit pixels); forward stagings {routes}")
 
 
 def compare_with_cpu() -> dict:
@@ -1412,8 +1598,8 @@ def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
 # device kernel name -> operator class, first match wins
 KERNEL_CLASSES = (
     ("hand-written kernels", ("combine_fwd_kernel", "combine_bwd_src_kernel", "combine_bwd_v_kernel",
-                              "combine_bwd_src_tc_kernel", "combine_bwd_v_tc_kernel",
-                              "raster_kernel", "gather_kernel", "conv5_kernel", "conv5_tc_kernel",
+                              "combine_fwd_tc_kernel", "combine_bwd_src_tc_kernel",
+                              "combine_bwd_v_tc_kernel", "bin_kernel", "raster_kernel", "gather_kernel", "conv5_kernel", "conv5_tc_kernel",
                               "fwd_pixel_kernel", "bwd_c_kernel", "bwd_c_gattn_kernel",
                               "fold_kernel", "dg_kernel", "dw_kernel", "dw_tc_kernel",
                               "slice_sum_kernel")),
@@ -1583,16 +1769,17 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = _cuda.launch_counts()
     log(f"  main path launches: {launches}")
+    check(launches == LAUNCHES_PER_CALL, f"main path launches {launches} != {LAUNCHES_PER_CALL}")
     for name, n in LAUNCHES_PER_CALL.items():
-        check(launches.get(name, 0) == n, f"{name}: {launches.get(name, 0)} launches, expected {n}")
         check(len(rec.calls[name]) == n, f"{name}: {len(rec.calls[name])} calls recorded")
     check(all(torch.isfinite(o).all() for o in outs), "non-finite serving outputs")
     results = {
-        "local_combine": check_local_combine(rec.calls["local_combine"]),
+        "local_combine_tc": check_local_combine(rec.calls["local_combine_tc"]),
         "rasterizer": check_rasterizer(rec.calls["rasterizer"]),
         "table_gather": check_table_gather(rec.calls["table_gather"]),
     }
     del rec
+    results["rasterizer"]["ties"] = check_rasterizer_ties()
     check_ragged_shapes()
 
     # 4. card against CPU
@@ -1633,17 +1820,22 @@ def main() -> int:
         got = {k: hw.get(k, {}).get("count", 0) for k in want}
         log(f"  profiler hoig_train_fused: launches per step {got}")
         check(got == want, f"fused step launches by kernel {got} != {want}")
-    # the shift step's backward combines run on the tensor cores under bf16:
-    # both sides of the R = 5 combine and dsrc of the R = 3 one, per layer
-    hw = profile.get("hoig_train", {}).get("hand_written")
-    want = {"combine_bwd_src_tc_kernel": 18, "combine_bwd_v_tc_kernel": 9,
-            "combine_bwd_src_kernel": 0, "combine_bwd_v_kernel": 0, "combine_fwd_kernel": 18}
-    if hw is None:
-        log("  profiler: the shift step's launches by kernel not measured")
-    else:
+    # the shift path's combines run on the tensor cores under bf16: both
+    # forward combines of each layer, and (step) both sides of the R = 5
+    # combine's backward and dsrc of the R = 3 one; the rasterizer is one
+    # binning and one z-buffer kernel
+    fwd_want = {"combine_fwd_tc_kernel": 18, "combine_fwd_kernel": 0, "bin_kernel": 1,
+                "raster_kernel": 1}
+    for region, want in (("hoig_serve", fwd_want), ("hoig_train", dict(
+            fwd_want, combine_bwd_src_tc_kernel=18, combine_bwd_v_tc_kernel=9,
+            combine_bwd_src_kernel=0, combine_bwd_v_kernel=0))):
+        hw = profile.get(region, {}).get("hand_written")
+        if hw is None:
+            log(f"  profiler: the launches by kernel of {region} not measured")
+            continue
         got = {k: hw.get(k, {}).get("count", 0) for k in want}
-        log(f"  profiler hoig_train: launches per step {got}")
-        check(got == want, f"shift step launches by kernel {got} != {want}")
+        log(f"  profiler {region}: launches per {'call' if region == 'hoig_serve' else 'step'} {got}")
+        check(got == want, f"{region} launches by kernel {got} != {want}")
 
     # 9. report
     kernels = []

@@ -1,11 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (attn_fused.cu, local_combine.cu): cp.async staging into shared memory,
-// wgmma matrix descriptors without swizzle, the warpgroup fences, and
-// wgmma.mma_async with bf16 operands and f32 accumulators at the widths
-// the kernels use. Plain CUDA: no PyTorch header. Each source includes it
-// once; the helpers live in that source's unnamed namespace.
+// TMA tile loads (cp.async.bulk.tensor) that complete on an mbarrier, with
+// the host-side encoding of their tensor maps, wgmma matrix descriptors
+// without swizzle, the warpgroup fences, and wgmma.mma_async with bf16
+// operands and f32 accumulators at the widths the kernels use. Plain CUDA:
+// no PyTorch header, and no link against libcuda (the tensor-map
+// encoder is looked up through the runtime's cudaGetDriverEntryPoint). Each
+// source includes it once; the helpers live in that source's unnamed
+// namespace.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and the encoder's types only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -60,6 +65,93 @@ __device__ __forceinline__ uint4 load_bf16x8(const unsigned short* p, int avail)
     wd[e] = lo | (hi << 16);
   }
   return make_uint4(wd[0], wd[1], wd[2], wd[3]);
+}
+
+// ------------------------------------------------------------ TMA, mbarriers
+//
+// A TMA load is issued by one thread and reports the bytes it wrote to an
+// mbarrier in shared memory; a barrier initialised with one arrival
+// completes its phase when that thread has announced the bytes
+// (mbar_expect_tx, its arrival) and all of them have landed. Waiters pass
+// the parity of the phase they wait for: 0 for a barrier's first use, then
+// alternating.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+// makes the initialised barriers visible to the TMA unit and the other threads
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the calling thread's arrival, announcing `bytes` still to land
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// waits for the phase of the given parity to complete; a phase that does
+// not complete within about 2^26 polls (seconds; a TMA load takes
+// microseconds) aborts the kernel with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// the box of a 4-D tensor map whose first corner is (c0, c1, c2, c3),
+// innermost first, into shared memory at dst (128-byte aligned), completing
+// on bar; elements outside the tensor land as zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Error codes of encode_bf16_map past the CUDA runtime's: kTmaEncodeError +
+// the CUresult of cuTensorMapEncodeTiled
+constexpr int kTmaEncodeError = 10000;
+
+// Host: a tiled tensor map over a bf16 tensor of `rank` dimensions (dims
+// innermost first, byte strides of dims 1.., each a multiple of 16; a
+// 16-byte aligned base), for boxes of `box` elements, no swizzle, zeros out
+// of bounds. Returns 0, a CUDA runtime error, or kTmaEncodeError + the
+// CUresult of cuTensorMapEncodeTiled, which is looked up once through
+// cudaGetDriverEntryPoint (no link against libcuda).
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box) {
+  using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                                    &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      return kTmaEncodeError + CUDA_ERROR_NOT_FOUND;
+    }
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kTmaEncodeError + static_cast<int>(res);
 }
 
 // wgmma matrix descriptor without swizzle: start address, leading byte offset
@@ -166,6 +258,31 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspA), "n"(kTnspB));
+}
+
+// d = A (64 x 16, from registers) B (16 x 64) + (accumulate ? d : 0), f32;
+// B MN-major. Thread (warp w, lane l) holds in a[i] the bf16 pair of A at
+// row 16 w + l / 4 + 8 (i % 2), columns 8 (i / 2) + 2 (l % 4) + {0, 1}
+// (the lower column in the lower half)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace

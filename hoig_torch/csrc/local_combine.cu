@@ -18,40 +18,41 @@
 // here a block owns an 8x8 tile of pixels and stages only the windows of
 // the tile's (8 + 2R)^2 pixels that it reads.
 //
-//   * forward (all dtypes): stages the source window and the tile's 64 x K^2
-//     coefficient rows, 64 channels at a time; warp = tile row, lane =
-//     channel pair.
-//   * backward, bf16 inputs (entry points *_tc): both gradients are banded
-//     products of the tile against its window, run as warpgroup matrix
-//     multiplies on the tensor cores (wgmma, bf16 operands, f32
-//     accumulators; see "backward on the tensor cores" below).
-//   * backward, f32 inputs: FP32 kernels on the CUDA cores. bwd_src is a
-//     gather, no atomics: the tiles cover the PADDED frame; the block stages
-//     the window of g that reaches its tile (zero outside the image) and,
-//     one offset row dy at a time, column d of the coefficient rows of the
+//   * bf16 inputs (entry points *_tc): the forward and both gradients are
+//     banded products of the tile against its window, run as warpgroup
+//     matrix multiplies on the tensor cores (wgmma, bf16 operands, f32
+//     accumulators; see "on the tensor cores" below). The forward's window
+//     arrives by TMA.
+//   * f32 inputs: FP32 kernels on the CUDA cores. The forward stages the
+//     source window and the tile's 64 x K^2 coefficient rows, 64 channels
+//     at a time; warp = tile row, lane = channel pair. bwd_src is a gather,
+//     no atomics: the tiles cover the PADDED frame; the block stages the
+//     window of g that reaches its tile (zero outside the image) and, one
+//     offset row dy at a time, column d of the coefficient rows of the
 //     pixels it reads. bwd_v: a thread owns one pixel and every fourth
 //     offset d, keeps its <= 31 sums in registers and walks the channels in
 //     ascending order, 64-channel chunk after chunk (no atomics, no
 //     shuffles). The Pallas bwd_src read-modify-wrote shifted slices of the
 //     output in the output's dtype; here every sum is kept in f32 and
-//     rounded once (a numerical improvement under bf16).
+//     rounded once.
 //
 // What bounds them on an H100: at the attention's shapes (R = 3 over 128
 // channels, R = 5 over 128..512 channels) every element takes K^2
 // multiply-adds against a few bytes moved: 2 * K^2 FLOP per output element
 // of forward and bwd_src, 2 * C FLOP per element of dv. On the CUDA cores
-// (the forward, the f32 backward) that arithmetic bounds them; on the tensor
-// cores it is a few microseconds per step and the bytes bound them.
+// (the f32 kernels) that arithmetic bounds them; on the tensor cores it is
+// a few microseconds per step and the bytes bound them.
 //
-// Numerics: forward and the f32 bwd_src accumulate in f32 in ascending d,
-// each term rounded as a product and then added (no fused multiply-add; this
-// file is built with -fmad=false). That is the exact order and rounding of
-// the plain PyTorch versions, so they agree bit for bit. The f32 bwd_v sums
-// over channels with explicit fused multiply-adds in f32. The tensor-core
-// kernels form the same exact bf16 x bf16 products and add them in f32 in
-// the tensor cores' order, then round once to bf16: within one bf16 ulp of
-// the plain version, plus 1e-5 of the largest sum of |v| |g| (bwd_src) or of
-// the largest |g| |src| (bwd_v).
+// Numerics: the f32 forward and bwd_src accumulate in f32 in ascending d,
+// each term rounded as a product and then added (no fused multiply-add;
+// this file is built with -fmad=false). That is the exact order and
+// rounding of the plain PyTorch versions, so they agree bit for bit. The f32
+// bwd_v sums over channels with explicit fused multiply-adds in f32. The
+// tensor-core kernels form the same exact bf16 x bf16 products and add them
+// in f32 in the tensor cores' order, then round once to bf16: within one
+// bf16 ulp of the plain version, plus 1e-5 of the largest sum of |v| |src|
+// (forward), |v| |g| (bwd_src) or |g| |src| (bwd_v); each gives the same
+// bits on every call.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,35 +67,22 @@ constexpr int kTile = 8;       // output tile edge (pixels)
 constexpr int kChunk = 64;     // channels per block: 32 lanes x 2 channels
 constexpr int kThreads = 256;  // 8 warps; warp w owns tile row w
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// helpers of the FP32 kernels (templates over the element type, instantiated for f32 only)
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ void copy_pair(float* dst, const float* src) {
   *reinterpret_cast<float2*>(dst) = *reinterpret_cast<const float2*>(src);
 }
-__device__ __forceinline__ void copy_pair(__nv_bfloat16* dst, const __nv_bfloat16* src) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = *reinterpret_cast<const __nv_bfloat162*>(src);
-}
 
 __device__ __forceinline__ void zero_pair(float* dst) {
   *reinterpret_cast<float2*>(dst) = make_float2(0.f, 0.f);
 }
-__device__ __forceinline__ void zero_pair(__nv_bfloat16* dst) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(0.f, 0.f);
-}
 
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ void store_one(float* dst, float a) { *dst = a; }
@@ -126,7 +114,7 @@ combine_fwd_kernel(const T* __restrict__ src, const T* __restrict__ v, T* __rest
     const int y = ty0 + p / kTile;
     const int x = tx0 + p % kTile;
     float val = 0.f;
-    if (y < h && x < w) val = to_f32(v[((b * h + y) * w + x) * d_cols + d]);
+    if (y < h && x < w) val = v[((b * h + y) * w + x) * d_cols + d];
     v_s[i] = val;
   }
   // source window of the tile in the padded frame, channel pairs
@@ -258,7 +246,7 @@ combine_bwd_src_kernel(const T* __restrict__ g, const T* __restrict__ v, T* __re
       const int x = ox + wx;
       float val = 0.f;
       if (y >= 0 && y < h && x >= 0 && x < w) {
-        val = to_f32(v[((b * h + y) * w + x) * d_cols + dy * k + dx]);
+        val = v[((b * h + y) * w + x) * d_cols + dy * k + dx];
       }
       v_s[i] = val;
     }
@@ -418,28 +406,53 @@ int launch_bwd_v(const void* src, const void* g, void* dv, int b, int h, int w, 
   return cudaGetLastError();
 }
 
-// ----------------------------------------------- backward on the tensor cores
+// ------------------------------------------------------- on the tensor cores
 //
-// For bf16 inputs both gradients of a tile are banded matrix products of the
-// tile against the (8 + 2R)^2 window of pixels it reads, run as warpgroup
-// matrix multiplies (wgmma.mma_async, bf16 operands, f32 accumulators;
-// sm_90a). A product of two bf16 values is exact in f32, so the tensor cores
-// form the plain version's very products; only the order of the f32 sums
-// differs. Window pixel n lies at (n / kWin, n % kWin) of the window, tile
-// pixel m at (m / 8, m % 8) of the tile.
+// For bf16 inputs the forward and both gradients of a tile are banded
+// matrix products of the tile against the (8 + 2R)^2 window of pixels it
+// reads, run as warpgroup matrix multiplies (wgmma.mma_async, bf16
+// operands, f32 accumulators; sm_90a). A product of two bf16 values is
+// exact in f32, so the tensor cores form the plain version's very products;
+// only the order of the f32 sums differs. Window pixel n lies at (n / kWin,
+// n % kWin) of the window, tile pixel m at (m / 8, m % 8) of the tile.
 //
+//   combine_fwd_tc_kernel: out_tile = Wt . src_window (M = the tile's 64
+//     pixels, K = the window's pixels padded to 16, N = channels; the window
+//     MN-major, as NHWC keeps channels contiguous), with Wt[m, n] = v[m, d]
+//     where n = m + (dy, dx), zero elsewhere, built from the tile's own 64
+//     coefficient rows, in registers.
 //   combine_bwd_v_tc_kernel: D = g_tile . src_window^T (M = the tile's 64
-//     pixels, N = the window's pixels, K = channels; both operands K-major,
-//     as NHWC keeps channels contiguous), and dv[m, d] = D[m, m + off_d],
-//     the band: (dy, dx) = window pixel - tile pixel, both in [0, K). The
-//     full product costs 2.7x (R = 5) to 4x (R = 3) the band's operations,
-//     a few microseconds per step; its bytes are what bound it.
+//     pixels, N = the window's pixels, K = channels; both operands K-major),
+//     and dv[m, d] = D[m, m + off_d], the band: (dy, dx) = window pixel -
+//     tile pixel, both in [0, K). The full product costs 2.7x (R = 5) to 4x
+//     (R = 3) the band's operations, a few microseconds per step; its bytes
+//     are what bound it.
 //   combine_bwd_src_tc_kernel: dsrc_tile = Wt . g_window (M = 64 pixels of
 //     the padded frame, K = the window's pixels, N = channels; g MN-major),
 //     with Wt[m, n] = v[n, (m - n + 2R)] inside the band and zero outside,
 //     built in shared memory from the window's coefficient rows.
 //
-// Tiling. bwd_v: a block owns (image, 8x8 tile, a contiguous range of the
+// Tiling. forward: a block (one warpgroup) owns (image, 8x8 tile, a
+// contiguous range of the 64-channel slabs) and streams the slabs through a
+// ring of kFwdStages stages. One thread loads a slab's window by TMA
+// (cp.async.bulk.tensor) as 8 boxes of 8 channels x kWin x kWin pixels,
+// each landing as one column of the no-swizzle core-matrix layout that
+// wgmma reads (out-of-frame rows of partial tiles land as zeros); an
+// mbarrier per stage reports the bytes, and a stage is refilled with the
+// slab kFwdStages on as soon as the warpgroup is done with it. The block
+// first copies the tile's coefficient rows as they lie (8 runs of 8 pixels
+// x K^2 values) by cp.async, then starts the first slabs' loads and builds
+// Wt from the rows straight into registers, as wgmma's A operand (84
+// registers a thread at R = 5): Wt never touches shared memory. The K padding past the window's pixels is zeroed once in every
+// stage (0 x NaN is NaN). Each slab is one m64n64k16 chain, and its result
+// leaves through shared memory in 16-byte stores. Channels split over
+// gridDim.y where the tiles alone leave SMs idle (2 at 32x32): output
+// channels are independent, so the splits need no reduction. Channel
+// counts or bases TMA cannot take (C % 8 != 0, a base not 16-byte aligned)
+// stage the window element by element instead, chosen by shape before the
+// launch. 109 KB at R = 5: two blocks per SM, one's prologue under the
+// other's slabs.
+// bwd_v: a block owns (image, 8x8 tile, a contiguous range of the
 // 64-channel slabs); two warpgroups split the window's pixels, each in
 // wgmma of kTcN = 56 columns (3 of them at R = 5: 84 accumulators a
 // thread). The slabs stream through two shared-memory stages by cp.async,
@@ -463,11 +476,12 @@ int launch_bwd_v(const void* src, const void* g, void* dv, int b, int h, int w, 
 // one block per SM. Channel tails and partial tiles are zero-filled in
 // staging and not stored.
 //
-// What bounds them: bytes (each input read once, dv or dsrc written once:
-// about 0.05 ms per shift training step for each kernel on an H100). This
-// first version is bound by its staging instead: every block reads its
-// window, 5x the tile's own pixels at R = 5, through cp.async of 16 bytes a
-// thread, well below the L2's rate; TMA tile loads are the next lever.
+// What bounds them: bytes (each input read once, the output written once:
+// about 0.05-0.07 ms per shift call or step for each kernel on an H100).
+// The backward kernels are bound by their staging instead: every block
+// reads its window, 5x the tile's own pixels at R = 5, through cp.async of
+// 16 bytes a thread, well below the L2's rate; the forward's TMA loads are
+// the lever they have not pulled yet.
 constexpr int kTcThreads = 256;        // bwd_v: two warpgroups
 constexpr int kSrcThreads = 512;       // bwd_src: four warpgroups, 32 channels each
 constexpr int kTcM = kTile * kTile;    // the tile's 64 pixels: wgmma's M
@@ -476,7 +490,12 @@ constexpr int kTcKc = kTcSlab / 8;     // 16-byte units per pixel and slab
 constexpr int kTcN = 56;               // bwd_v: window pixels per wgmma
 constexpr int kTcMaxSplits = 8;        // bwd_v: blocks per cluster (portable limit)
 constexpr int kSrcCh = 128;            // bwd_src: channels per block
+constexpr int kFwdThreads = 128;       // forward: one warpgroup
+constexpr int kFwdSlab = 64;           // forward: channels per stage
+constexpr int kFwdKc = kFwdSlab / 8;   // forward: 8-channel boxes (16-byte units) per pixel
+constexpr int kFwdStages = 2;          // forward: slabs in flight
 static_assert(kTcThreads == 2 * 128 && kSrcCh == kSrcThreads / 128 * 32, "warpgroups x width");
+static_assert(kFwdSlab == 64 && kFwdThreads == 128, "forward: one warpgroup, m64n64k16");
 
 template <int R>
 struct Band {
@@ -495,8 +514,19 @@ struct Band {
   static constexpr int kSrcPad = (kNWin + 15) / 16 * 16;
   static constexpr int kVSlot = (kWin * kKK * 2 + 30 + 15) / 16 * 16;
   static constexpr int kSrcSmem = (kSrcPad / 8 * kTcM + kSrcCh / 8 * kSrcPad) * 16 + kWin * kVSlot;
+  // forward: the ring of window stages [kc][n] (n padded as bwd_src's), the
+  // output tile (16 bytes of padding a pixel against bank conflicts), a
+  // slot per tile row for its run of coefficient rows (8 pixels x K^2 bf16,
+  // with room for the 16-byte units that hold its first and last bytes) and
+  // a barrier per stage, after up to 127 bytes that align the stages to 128
+  static constexpr int kFwdStage = kFwdKc * kSrcPad;  // 16-byte units
+  static constexpr int kFwdOutPitch = kFwdSlab * 2 + 16;
+  static constexpr int kFwdVSlot = (kTile * kKK * 2 + 30 + 15) / 16 * 16;
+  static constexpr int kFwdSmem = 128 + kFwdStages * kFwdStage * 16 +
+                                  kTcM * kFwdOutPitch + kTile * kFwdVSlot + 8 * kFwdStages;
   static_assert(kTcM * kKK * 4 <= kVSmem, "bwd_v's band fits its staging");
-  static_assert(kVSmem <= 227 * 1024 && kSrcSmem <= 227 * 1024, "one block's shared memory");
+  static_assert(kVSmem <= 227 * 1024 && kSrcSmem <= 227 * 1024 && kFwdSmem <= 227 * 1024,
+                "one block's shared memory");
 };
 
 // Units [kc][n] (16 bytes each: channels ch0 + 8 kc .. + 7 of window pixel
@@ -796,7 +826,196 @@ combine_bwd_src_tc_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat
   }
 }
 
-// whole 16-byte units of a tensor's channels: cp.async staging
+template <int R>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+combine_fwd_tc_kernel(const __grid_constant__ CUtensorMap src_map,
+                      const __nv_bfloat16* __restrict__ src, const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ out, int h, int w, int c, int tma, int vec_out) {
+  using Bd = Band<R>;
+  constexpr int kP = Bd::kSrcPad;
+  constexpr int kStage = Bd::kFwdStage;
+  constexpr uint32_t kBoxBytes = 16 * Bd::kNWin;
+  constexpr int kVUnits = Bd::kFwdVSlot / 16;  // per tile row
+  extern __shared__ unsigned char fwd_smem[];
+  __shared__ int v_head[kTile];  // the byte of a row's slot where its first coefficient lies
+  // kFwdStages stages | the output tile | the coefficient rows | a barrier per stage
+  uint4* const stages = reinterpret_cast<uint4*>(fwd_smem + (128 - smem_u32(fwd_smem) % 128) % 128);
+  unsigned char* const out_s = reinterpret_cast<unsigned char*>(stages + kFwdStages * kStage);
+  unsigned char* const v_s = out_s + kTcM * Bd::kFwdOutPitch;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(v_s + kTile * Bd::kFwdVSlot);
+  const int tid = threadIdx.x;
+  const int tiles_x = (w + kTile - 1) / kTile;
+  const int ty0 = (blockIdx.x / tiles_x) * kTile;
+  const int tx0 = (blockIdx.x % tiles_x) * kTile;
+  const int splits = gridDim.y;
+  const long long b = blockIdx.z;
+  const int n_slabs = (c + kFwdSlab - 1) / kFwdSlab;
+  const int per = (n_slabs + splits - 1) / splits;
+  const int s_begin = min(n_slabs, static_cast<int>(blockIdx.y) * per);
+  const int n_mine = min(n_slabs, s_begin + per) - s_begin;
+  if (n_mine <= 0) return;
+
+  // slab i of this block's range into stage i % kFwdStages: one 8-channel
+  // box per column that holds channels (all of them: C % 8 == 0)
+  const CUtensorMap* const map = &src_map;
+  auto issue = [&](int i) {
+    const int st = i % kFwdStages;
+    const int ch0 = (s_begin + i) * kFwdSlab;
+    const int boxes = min(kFwdKc, (c - ch0) / 8);
+    const uint32_t bar = smem_u32(full + st);
+    mbar_expect_tx(bar, boxes * kBoxBytes);
+    const uint32_t dst = smem_u32(stages + st * kStage);
+    for (int kc = 0; kc < boxes; ++kc) {
+      tma_load_4d(dst + kc * kP * 16, map, bar, ch0 + 8 * kc, tx0, ty0, static_cast<int>(b));
+    }
+  };
+  // the coefficient rows (K^2 values a pixel) of each tile row's pixels in
+  // the frame, one run as they lie in memory, copied by 16-byte units from
+  // the unit that holds its first byte up to its last byte
+  const int x_n = min(kTile, w - tx0);
+  auto run = [&](int r) {
+    return reinterpret_cast<uintptr_t>(v + ((b * h + ty0 + r) * w + tx0) * Bd::kKK);
+  };
+  for (int i = tid; i < kTile * kVUnits; i += kFwdThreads) {
+    const int r = i / kVUnits;
+    const int j = i - r * kVUnits;
+    if (ty0 + r >= h) continue;
+    const uintptr_t end = run(r) + static_cast<uintptr_t>(x_n) * Bd::kKK * 2;
+    const uintptr_t unit = (run(r) & ~static_cast<uintptr_t>(15)) + 16 * j;
+    if (unit >= end) continue;
+    cp_async<16>(smem_u32(v_s + r * Bd::kFwdVSlot + 16 * j), reinterpret_cast<const void*>(unit),
+                 end - unit < 16 ? static_cast<int>(end - unit) : 16);
+  }
+  cp_async_commit();
+  if (tid < kTile && ty0 + tid < h) v_head[tid] = static_cast<int>(run(tid) & 15);
+  if (tma) {
+    if (tid == 0) {
+      for (int st = 0; st < kFwdStages; ++st) mbar_init(smem_u32(full + st), 1);
+      fence_mbar_init();
+    }
+    // the K padding of every stage, which no box writes (0 x NaN is NaN)
+    constexpr int kPadUnits = kP - Bd::kNWin;
+    if constexpr (kPadUnits > 0) {
+      for (int i = tid; i < kFwdStages * kFwdKc * kPadUnits; i += kFwdThreads) {
+        const int col = i / kPadUnits;  // stage * kFwdKc + kc
+        stages[col * kP + Bd::kNWin + (i - col * kPadUnits)] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+  cp_async_wait_all();
+  fence_proxy_async();  // the zeroed padding visible to the tensor cores
+  __syncthreads();      // the barriers initialised, the coefficient rows in place
+  // the first slabs' windows are in flight while Wt is built (issued any
+  // earlier, they slow the coefficient rows that the build waits for)
+  if (tma && tid == 0) {
+    for (int i = 0; i < min(kFwdStages, n_mine); ++i) issue(i);
+  }
+
+  // A = Wt in registers, as wgmma takes it: this thread holds rows m0 = 16
+  // warp + l / 4 and m0 + 8, columns 16 kk + 8 (i / 2) + 2 (l % 4) + {0, 1}
+  // of k-step kk; entry (m, n) is coefficient (dy, dx) = window pixel n -
+  // tile pixel m of pixel m where both lie in [0, K), else zero
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  uint32_t a[kP / 16][4];
+  {
+    const unsigned short* vrow[2];
+    int mx[2], my[2];
+    bool live[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = 16 * warp + (lane >> 2) + 8 * hh;
+      my[hh] = m / kTile;
+      mx[hh] = m % kTile;
+      live[hh] = ty0 + my[hh] < h && mx[hh] < x_n;
+      vrow[hh] = reinterpret_cast<const unsigned short*>(v_s + my[hh] * Bd::kFwdVSlot +
+                                                         (live[hh] ? v_head[my[hh]] : 0)) +
+                 mx[hh] * Bd::kKK;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kP / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int hh = i & 1;
+        uint32_t pair = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 16 * kk + 8 * (i >> 1) + 2 * (lane & 3) + e;
+          const int dy = n / Bd::kWin - my[hh];
+          const int dx = n % Bd::kWin - mx[hh];
+          if (live[hh] && n < Bd::kNWin && dy >= 0 && dy < Bd::kK && dx >= 0 && dx < Bd::kK) {
+            pair |= static_cast<uint32_t>(vrow[hh][dy * Bd::kK + dx]) << (16 * e);
+          }
+        }
+        a[kk][i] = pair;
+      }
+    }
+  }
+
+  for (int i = 0; i < n_mine; ++i) {
+    const int st = tma ? i % kFwdStages : 0;
+    const int ch0 = (s_begin + i) * kFwdSlab;
+    uint4* const stage = stages + st * kStage;
+    if (tma) {
+      mbar_wait(smem_u32(full + st), (i / kFwdStages) & 1);
+    } else {
+      stage_window<Bd::kWin, kP, kFwdKc, kFwdThreads>(stage, src, b, h + 2 * R, w + 2 * R, ty0,
+                                                       tx0, Bd::kNWin, c, ch0, 0, tid);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    float d[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) d[j] = 0.f;
+    const uint32_t b_u = smem_u32(stage);
+    wgmma_fence();
+    fence_acc(d);
+#pragma unroll
+    for (int kk = 0; kk < kP / 16; ++kk) {
+      wgmma_m64n64k16_rs(d, a[kk], gmma_desc(b_u + kk * 16 * 16, 8 * 16, kP * 16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(d);
+    // the warpgroup is done with the stage, and every thread with the
+    // previous slab's output tile
+    __syncthreads();
+    if (tma && tid == 0 && i + kFwdStages < n_mine) issue(i + kFwdStages);
+
+    // the tile's 64 pixels x 64 channels, rounded to bf16, through shared
+    // memory so that each pixel's channels leave in 16-byte stores
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = 16 * warp + 8 * half + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ch = 8 * j + 2 * (lane & 3);
+        *reinterpret_cast<__nv_bfloat162*>(out_s + m * Bd::kFwdOutPitch + ch * 2) =
+            __floats2bfloat162_rn(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+      }
+    }
+    __syncthreads();
+    for (int u = tid; u < kTcM * kFwdKc; u += kFwdThreads) {
+      const int m = u / kFwdKc;
+      const int kc = u % kFwdKc;
+      const int y = ty0 + m / kTile;
+      const int x = tx0 + m % kTile;
+      const int ch = ch0 + 8 * kc;
+      if (y >= h || x >= w || ch >= c) continue;
+      const unsigned char* from = out_s + m * Bd::kFwdOutPitch + kc * 16;
+      __nv_bfloat16* to = out + ((b * h + y) * w + x) * c + ch;
+      if (vec_out) {
+        *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(from);
+      } else {
+        for (int e = 0; e < 8 && ch + e < c; ++e) {
+          to[e] = reinterpret_cast<const __nv_bfloat16*>(from)[e];
+        }
+      }
+    }
+  }
+}
+
+// whole 16-byte units of a tensor's channels: cp.async or TMA staging
 bool vec_ok(int c, const void* p) {
   return c % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -840,6 +1059,31 @@ cudaError_t launch_bwd_src_tc(const void* g, const void* v, void* dsrc, int b, i
   return cudaGetLastError();
 }
 
+template <int R>
+int launch_fwd_tc(const void* src, const void* v, void* out, int b, int h, int w, int c, int splits,
+                  int tma, cudaStream_t stream) {
+  constexpr int smem = Band<R>::kFwdSmem;
+  constexpr cuuint32_t kWin = Band<R>::kWin;
+  CUtensorMap map = {};
+  if (tma) {
+    // src_pad (B, H+2R, W+2R, C), innermost first; boxes of 8 channels x
+    // kWin x kWin pixels of one image
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w + 2 * R),
+                                static_cast<cuuint64_t>(h + 2 * R), static_cast<cuuint64_t>(b)};
+    const cuuint64_t strides[3] = {2ull * c, 2ull * c * (w + 2 * R), 2ull * c * (w + 2 * R) * (h + 2 * R)};
+    const cuuint32_t box[4] = {8, kWin, kWin, 1};
+    const int err = encode_bf16_map(&map, src, 4, dims, strides, box);
+    if (err != 0) return err;
+  }
+  HOIG_TRY(cudaFuncSetAttribute(combine_fwd_tc_kernel<R>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  const dim3 grid(((h + kTile - 1) / kTile) * ((w + kTile - 1) / kTile), splits, b);
+  combine_fwd_tc_kernel<R><<<grid, kFwdThreads, smem, stream>>>(
+      map, static_cast<const __nv_bfloat16*>(src), static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), h, w, c, tma, static_cast<int>(vec_ok(c, out)));
+  return cudaGetLastError();
+}
+
 // the tensor-core kernels are instantiated for R = 1 .. 5
 constexpr int kTcMaxRadius = 5;
 
@@ -851,12 +1095,34 @@ bool bad_tc_dims(int b, int h, int w, int c, int d_cols, int radius) {
 
 }  // namespace
 
+// f32 only: bf16 inputs take hoig_local_combine_fwd_tc
 extern "C" int hoig_local_combine_fwd(const void* src, const void* v, void* out, int b, int h,
                                       int w, int c, int d_cols, int radius, int is_bf16,
                                       void* stream) {
+  if (is_bf16) return cudaErrorInvalidValue;
+  return launch<float>(src, v, out, b, h, w, c, d_cols, radius, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 only: out (B, H, W, C) on the tensor cores, R in 1..5, the channels
+// split over `splits` blocks per tile; v holds exactly K^2 coefficient
+// columns (d_cols == K^2: the wrapper slices a wider v); tma = 1 loads the
+// source window by TMA (needs C % 8 == 0 and a 16-byte aligned src_pad), 0
+// element by element
+extern "C" int hoig_local_combine_fwd_tc(const void* src, const void* v, void* out, int b, int h,
+                                         int w, int c, int d_cols, int radius, int splits, int tma,
+                                         void* stream) {
+  if (bad_tc_dims(b, h, w, c, d_cols, radius) || d_cols != (2 * radius + 1) * (2 * radius + 1) ||
+      splits < 1 || splits > 65535 || (tma && !vec_ok(c, src))) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<__nv_bfloat16>(src, v, out, b, h, w, c, d_cols, radius, s);
-  return launch<float>(src, v, out, b, h, w, c, d_cols, radius, s);
+  switch (radius) {
+    case 1: return launch_fwd_tc<1>(src, v, out, b, h, w, c, splits, tma, s);
+    case 2: return launch_fwd_tc<2>(src, v, out, b, h, w, c, splits, tma, s);
+    case 3: return launch_fwd_tc<3>(src, v, out, b, h, w, c, splits, tma, s);
+    case 4: return launch_fwd_tc<4>(src, v, out, b, h, w, c, splits, tma, s);
+    default: return launch_fwd_tc<5>(src, v, out, b, h, w, c, splits, tma, s);
+  }
 }
 
 // f32 only: bf16 inputs take hoig_local_combine_bwd_src_tc
@@ -915,17 +1181,19 @@ extern "C" int hoig_local_combine_bwd_v_tc(const void* src, const void* g, void*
 }
 
 // The tile constants that hoig_torch/ops/local_combine.py repeats (TILING)
-// to pick bwd_v's channel splits, in TILING's order: the tile edge,
-// bwd_v's channels per stage and its largest cluster, bwd_src's channels
-// per block, and the largest radius of the tensor-core kernels. Writes at
-// most n of them to out and returns how many there are.
+// to pick the channel splits, in TILING's order: the tile edge, bwd_v's
+// channels per stage and its largest cluster, bwd_src's channels per
+// block, the largest radius of the tensor-core kernels, and the forward's
+// channels per stage. Writes at most n of them to out and returns how many
+// there are.
 extern "C" int hoig_local_combine_tiling(int* out, int n) {
-  const int v[] = {kTile, kTcSlab, kTcMaxSplits, kSrcCh, kTcMaxRadius};
+  const int v[] = {kTile, kTcSlab, kTcMaxSplits, kSrcCh, kTcMaxRadius, kFwdSlab};
   constexpr int kCount = sizeof(v) / sizeof(v[0]);
   for (int i = 0; i < n && i < kCount; ++i) out[i] = v[i];
   return kCount;
 }
 
 extern "C" const char* hoig_error_string(int err) {
+  if (err >= kTmaEncodeError) return "cuTensorMapEncodeTiled failed (CUresult = code - 10000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

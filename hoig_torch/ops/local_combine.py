@@ -20,14 +20,16 @@ Both sums are kept in f32 and rounded once to the input's dtype. (The TPU
 kernel accumulated dsrc in the output's dtype, i.e. in bf16 under bf16; the
 f32 sum is a numerical improvement, like the forward's.)
 
-The forward has one entry point for both dtypes (`hoig_local_combine_fwd`,
-counted as `local_combine`). The backward picks its entry points by dtype:
-bf16 runs both gradients as banded tile products on the tensor cores
-(`hoig_local_combine_bwd_src_tc` and `hoig_local_combine_bwd_v_tc`, counted
-as `local_combine_bwd_src_tc` and `local_combine_bwd_v_tc`; R in 1..5), f32
-the FP32 kernels (`hoig_local_combine_bwd_src`, `_bwd_v`, counted without
-`_tc`), which repeat the plain loops' order. A bf16 call that the
-tensor-core kernels cannot take raises; nothing falls back.
+Both directions pick their entry points by dtype. bf16 runs the forward
+and both gradients as banded tile products on the tensor cores
+(`hoig_local_combine_fwd_tc`, `_bwd_src_tc`, `_bwd_v_tc`, counted as
+`local_combine_tc`, `local_combine_bwd_src_tc` and `local_combine_bwd_v_tc`;
+R in 1..5; the forward's source window arrives by TMA where `fwd_staging`
+says so); f32 the FP32 kernels (`hoig_local_combine_fwd`, `_bwd_src`,
+`_bwd_v`, counted as `local_combine`, `local_combine_bwd_src`,
+`local_combine_bwd_v`), which repeat the plain loops' order and refuse
+bf16. A bf16 call that the tensor-core kernels cannot take raises; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ _BWD_V_MAX_RADIUS = 5  # the FP32 bwd_v kernel keeps ceil(K^2 / 4) <= 31 sums pe
 # The tensor-core kernels' tile constants (csrc/local_combine.cu, reported
 # by hoig_local_combine_tiling): the tile edge, bwd_v's channels per stage
 # and its largest cluster of channel splits, bwd_src's channels per block,
-# the largest radius the kernels are built for.
-TILING = dict(tile=8, v_slab=64, v_max_splits=8, src_channels=128, max_radius=5)
+# the largest radius the kernels are built for, the forward's channels per
+# stage.
+TILING = dict(tile=8, v_slab=64, v_max_splits=8, src_channels=128, max_radius=5, fwd_slab=64)
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -99,7 +102,8 @@ def _launch(symbol: str, count_as: str, in0, in1, out, dims, radius: int, tail=N
 
     The entry points take (in0, in1, out, b, h, w, c, d_cols, radius, *tail,
     stream); `tail` is the bf16 flag by default (the FP32 entry points refuse
-    1), nothing for bwd_src_tc and the channel splits for bwd_v_tc."""
+    1), nothing for bwd_src_tc, the channel splits for bwd_v_tc, and the
+    channel splits and the TMA flag for fwd_tc."""
     tensors = (in0, in1, out)
     _cuda.require_cuda(*tensors)
     if in0.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != in0.dtype for t in tensors):
@@ -131,6 +135,18 @@ def kernel_tiling() -> dict:
     return dict(zip(TILING, buf))
 
 
+def _channel_splits(b: int, h: int, w: int, c: int, slab: int, most: int) -> int:
+    """The smallest power of two of channel splits whose tiles x splits
+    blocks give 95% of the SMs a block, at most the slab count and `most`."""
+    edge = TILING["tile"]
+    tiles = b * -(-h // edge) * -(-w // edge)
+    cap = min(most, -(-c // slab))
+    splits = 1
+    while splits < cap and tiles * splits < 0.95 * _SMS:
+        splits *= 2
+    return min(splits, cap)
+
+
 def bwd_v_splits(b: int, h: int, w: int, c: int) -> int:
     """Channel splits of the tensor-core bwd_v: the blocks of one 8x8 tile
     form a cluster of this many, each summing a contiguous range of the
@@ -141,23 +157,52 @@ def bwd_v_splits(b: int, h: int, w: int, c: int) -> int:
     with fewer: the longer a block's pipeline of slabs, the more of its
     staging overlaps). It counts the kernel's tiling (TILING); if the copy
     parts from the kernel's, only the speed suffers."""
-    edge = TILING["tile"]
-    tiles = b * -(-h // edge) * -(-w // edge)
-    cap = min(TILING["v_max_splits"], -(-c // TILING["v_slab"]))
-    splits = 1
-    while splits < cap and tiles * splits < 0.95 * _SMS:
-        splits *= 2
-    return min(splits, cap)
+    return _channel_splits(b, h, w, c, TILING["v_slab"], TILING["v_max_splits"])
+
+
+def fwd_splits(b: int, h: int, w: int, c: int) -> int:
+    """Channel splits of the tensor-core forward: each of a tile's blocks
+    computes the output channels of a contiguous range of the 64-channel
+    slabs (independent: no reduction), chosen as bwd_v_splits chooses (2 at
+    32x32, where the 64 tiles alone leave half the card idle)."""
+    return _channel_splits(b, h, w, c, TILING["fwd_slab"], c)
+
+
+def fwd_staging(src_pad: torch.Tensor) -> str:
+    """How the tensor-core forward stages the source window of a bf16
+    `src_pad`: "tma" (one tile load per 8 channels; TMA needs 16-byte
+    strides and base, so C % 8 == 0 and a 16-byte aligned tensor) or
+    "elementwise" (each thread copies its values). Decided by shape and
+    address before the launch."""
+    aligned = src_pad.shape[3] % 8 == 0 and src_pad.data_ptr() % 16 == 0
+    return "tma" if aligned else "elementwise"
+
+
+def _check_tc_radius(radius: int) -> None:
+    if not 1 <= radius <= TILING["max_radius"]:
+        raise ValueError(f"the tensor-core kernels take R in 1..{TILING['max_radius']}, got {radius}")
 
 
 def _forward(src_pad: torch.Tensor, v: torch.Tensor, radius: int) -> torch.Tensor:
+    """out of `local_combine`: the plain loop on CPU tensors; on CUDA the
+    tensor-core kernel under bf16 (R in 1..5, else this raises) and the FP32
+    kernel under f32."""
     if src_pad.device.type == "cpu":
         return local_combine_reference(src_pad, v, radius)
     b, hp, wp, c = src_pad.shape
     h, w = hp - 2 * radius, wp - 2 * radius
     out = torch.empty((b, h, w, c), dtype=src_pad.dtype, device=src_pad.device)
-    _launch("hoig_local_combine_fwd", "local_combine", src_pad, v, out,
-            (b, h, w, c, v.shape[3]), radius)
+    if src_pad.dtype == torch.bfloat16:
+        _check_tc_radius(radius)
+        k2 = (2 * radius + 1) ** 2
+        # the kernel copies coefficient rows as they lie: exactly K^2 columns
+        vk = v if v.shape[3] == k2 else v[..., :k2].contiguous()
+        tma = int(fwd_staging(src_pad) == "tma")
+        _launch("hoig_local_combine_fwd_tc", "local_combine_tc", src_pad, vk, out,
+                (b, h, w, c, k2), radius, tail=(fwd_splits(b, h, w, c), tma))
+    else:
+        _launch("hoig_local_combine_fwd", "local_combine", src_pad, v, out,
+                (b, h, w, c, v.shape[3]), radius)
     return out
 
 
@@ -179,9 +224,8 @@ def local_combine_backward(src_pad, v, g: torch.Tensor, radius: int, d_cols: int
             dv = torch.nn.functional.pad(dv, (0, d_cols - k2))
         return dsrc, dv
     tc = g.dtype == torch.bfloat16
-    if tc and not 1 <= radius <= TILING["max_radius"]:
-        raise ValueError(f"the tensor-core backward takes R in 1..{TILING['max_radius']}, "
-                         f"got {radius}")
+    if tc:
+        _check_tc_radius(radius)
     dsrc = dv = None
     if need_src:
         dsrc = torch.empty((b, h + 2 * radius, w + 2 * radius, c), dtype=g.dtype, device=g.device)

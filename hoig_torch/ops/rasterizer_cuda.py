@@ -1,8 +1,10 @@
-"""Tiled z-buffer rasterizer: hand-written CUDA kernel and dispatch.
+"""Tiled z-buffer rasterizer: hand-written CUDA kernels and dispatch.
 
 Counterpart of hoig_tpu/ops/rasterizer_pallas.py. `rasterize_zbuffer`
-launches csrc/rasterizer.cu on CUDA tensors and runs the plain chunked
-reduction (`rasterizer.zbuffer_reference`) on CPU tensors.
+launches csrc/rasterizer.cu on CUDA tensors (a binning kernel that lists
+each 8x8 pixel tile's faces, then the z-buffer over those lists; one call,
+counted once as `rasterizer`) and runs the plain chunked reduction
+(`rasterizer.zbuffer_reference`) on CPU tensors.
 `rasterize_fim_wim_auto` is the conditioning stage's entry: face setup in
 PyTorch, the z-buffer, then the winner finish, whose [finv | attrs] row
 gather goes through `table_gather.gather_rows` (the B3 kernel on CUDA).
@@ -20,7 +22,11 @@ from hoig_torch.ops.table_gather import gather_rows
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 5 + [ctypes.c_float, ctypes.c_float, _P]
+TILE = 8  # the kernels' tile edge (pixels); the entry point refuses any other
+# faces a tile's list holds; a tile that would list more walks every face
+# whose box meets it instead (a larger set with the same winners)
+LIST_CAP = 1024
 
 
 def face_bbox(face_verts: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -53,13 +59,21 @@ def rasterize_zbuffer(setup: dict, bbox: torch.Tensor, image_size: int, near: fl
         raise TypeError("rasterize_zbuffer takes f32 planes and boxes")
     if izp.shape != (b, f, 3) or bbox.shape != (b, f, 4):
         raise ValueError(f"plane/box shapes {tuple(izp.shape)}, {tuple(bbox.shape)} do not fit F={f}")
-    idx = torch.empty((b, image_size * image_size), dtype=torch.int32, device=edge.device)
+    dev = edge.device
+    idx = torch.empty((b, image_size * image_size), dtype=torch.int32, device=dev)
+    # scratch: the packed face records, the tiles' face counts and lists
+    tiles = (-(-image_size // TILE)) ** 2
+    cap = min(f, LIST_CAP)
+    recs = torch.empty((b, f, 16), dtype=torch.float32, device=dev)
+    counts = torch.zeros((b, tiles), dtype=torch.int32, device=dev)
+    lists = torch.empty((b, tiles, cap), dtype=torch.int32, device=dev)
     # bounds rounded to f32 exactly as the plain version's comparisons are
     iz_lo = float(torch.tensor(1.0 / far, dtype=torch.float32))
     iz_hi = float(torch.tensor(1.0 / near, dtype=torch.float32))
     fn = _cuda.kernel("rasterizer", "hoig_rasterize_zbuffer", _ARGTYPES)
-    err = fn(edge9.data_ptr(), izp.data_ptr(), bbox.data_ptr(), idx.data_ptr(), b, f,
-             image_size, iz_lo, iz_hi, _cuda.stream_ptr())
+    err = fn(edge9.data_ptr(), izp.data_ptr(), bbox.data_ptr(), recs.data_ptr(),
+             counts.data_ptr(), lists.data_ptr(), idx.data_ptr(), b, f, image_size, TILE, cap,
+             iz_lo, iz_hi, _cuda.stream_ptr())
     _cuda.check("rasterizer", err)
     _cuda.count_launch("rasterizer")
     return idx
