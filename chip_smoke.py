@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path and its GAN training step on one
-NVIDIA GPU, with the shift attention engine and with the fused one.
+NVIDIA GPU, with the shift attention engine and with the fused one, and then
+the port's drivers, train_torch.py and eval_torch.py.
 
     python3 chip_smoke.py [--out DIR]   # from the root of a checkout, one card
 
@@ -83,7 +84,26 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      combine_bwd_src_tc_kernel, 9 of combine_bwd_v_tc_kernel, one of
      bin_kernel and raster_kernel and none of the FP32 combine kernels per
      shift step (and per shift serving call: 18, 1, 1, none);
-  9. print the kernels line, the card line and, last, the result line.
+  9. the drivers, after the earlier phases' models are freed, at full width
+     on the synthetic dataset (256 px, batch 4, bf16, --use_spade --use_vgg
+     --mask_bce, random weights): the loader alone over three batches;
+     train_torch.Train for one epoch of 3 steps, each step from launch
+     counters at 0 (18 / 18 / 9 / 1 / 2 as in phase 7), finite errors, the
+     first display's visuals forward and validation forward (18 / 1 / 2
+     launches each), the validation losses logged, the epoch-1 checkpoint
+     files under their reference names; eval_torch.main --load_epoch 1 from
+     that directory over 2 batches (shift engine): the loaded G bit-equal to
+     the G that was saved, 18 / 1 / 2 launches per batch, the first batch's
+     fakes bit-equal to flow_only + forward_only on the same batch and
+     weights, 8 PNGs each in source/, imitators/ and gt/, 256x256 by their
+     IHDR; eval_torch.main --corner_engine pallas over 1 batch (9 launches of
+     attn_fused_fwd_tc, no combine). Times: the loader's ms per batch, the
+     driver's train steps and iterations beside phase 7's step with the same
+     remat, the eval batches with and without the PNG writes beside phase
+     5's serving call, model builds, checkpoint saves, peak device memory.
+     The checkpoint directory (about 2.3 GB) is deleted at the end;
+ 10. print the drivers line, the kernels line, the card line and, last, the
+     result line.
 
 Details (result.json, profile.txt, build.txt: the compiler's report) go to
 --out, by default build/chip_smoke/.
@@ -95,6 +115,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1693,6 +1714,255 @@ def profile_window(regions: dict, out_dir: Path) -> dict:
     return out
 
 
+def _png_size(path: Path) -> tuple[int, int]:
+    """(width, height) from a PNG's IHDR chunk."""
+    head = path.read_bytes()[:24]
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path} is not a PNG")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, make):
+    """Replace obj.name by make(original) for the duration of the block."""
+    import inspect
+
+    raw = inspect.getattr_static(obj, name)
+    setattr(obj, name, make(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        setattr(obj, name, raw)
+
+
+class DriverProbe:
+    """Instruments the model facade while the drivers run: each train step
+    from launch counters at 0 (synchronized, timed, launches kept), each
+    forward likewise (its compute_losses flag, and the first call's batch and
+    fakes), each model build and checkpoint save timed, set_input's start
+    times (the loop's iterations), and the eval driver's PNG writes."""
+
+    def __init__(self):
+        self.steps, self.forwards, self.builds, self.saves = [], [], [], []
+        self.inputs, self.pngs = [], []
+        self.first = None
+
+    def timed(self, fn):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def attached(self):
+        import eval_torch
+        from hoig_torch.ops import _cuda
+        from hoig_torch.train import model_api
+
+        def make_step(orig_make):
+            def make(*a, **k):
+                step = orig_make(*a, **k)
+
+                def counted(state, batch, d_trainable):
+                    _cuda.reset_launch_counts()
+                    out, s = self.timed(lambda: step(state, batch, d_trainable))
+                    self.steps.append((s * 1e3, _cuda.launch_counts()))
+                    return out
+                return counted
+            return make
+
+        def forward(orig):
+            def fwd(model, keep_data_for_visuals=False, compute_losses=True):
+                _cuda.reset_launch_counts()
+                out, s = self.timed(lambda: orig(model, keep_data_for_visuals, compute_losses))
+                self.forwards.append((compute_losses, s * 1e3, _cuda.launch_counts()))
+                if self.first is None:
+                    self.first = (model._batch, [o.clone() for o in out])
+                return out
+            return fwd
+
+        def build(orig):
+            def get_by_name(*a, **k):
+                model, s = self.timed(lambda: orig(*a, **k))
+                self.builds.append(s)
+                return model
+            return staticmethod(get_by_name)
+
+        def save(orig):
+            def save_(model, label):
+                _, s = self.timed(lambda: orig(model, label))
+                self.saves.append(s)
+            return save_
+
+        def set_input(orig):
+            def set_input_(model, batch):
+                self.inputs.append((time.perf_counter(), model.is_train))
+                return orig(model, batch)
+            return set_input_
+
+        def save_image(orig):
+            def save_image_(image, path):
+                t0 = time.perf_counter()
+                orig(image, path)
+                self.pngs.append((time.perf_counter(), time.perf_counter() - t0))
+            return save_image_
+
+        with contextlib.ExitStack() as stack:
+            for obj, name, make in ((model_api, "make_train_step", make_step),
+                                    (model_api.HOIGModel, "forward", forward),
+                                    (model_api.ModelsFactory, "get_by_name", build),
+                                    (model_api.HOIGModel, "save", save),
+                                    (model_api.HOIGModel, "set_input", set_input),
+                                    (eval_torch, "save_image", save_image)):
+                stack.enter_context(patched(obj, name, make))
+            yield self
+
+
+def _eval_batches(probe: DriverProbe, t_end: float) -> list:
+    """(wall ms, PNG ms) of each eval batch: from its set_input to the next
+    one's (or to the driver's return)."""
+    marks = [t for t, _ in probe.inputs] + [t_end]
+    out = []
+    for a, b in zip(marks, marks[1:]):
+        png = sum(s for t, s in probe.pngs if a <= t <= b)
+        out.append(((b - a) * 1e3, png * 1e3))
+    return out
+
+
+def driver_phase(out_dir: Path, serve: dict, train: dict) -> dict:
+    """Phase 9: train_torch.Train for one epoch of 3 steps and eval_torch.main
+    from its checkpoint, at full width on the synthetic dataset (see the
+    module docstring). Returns the phase's numbers."""
+    import shutil
+
+    import torch
+
+    import eval_torch
+    import train_torch
+    from hoig_torch.data.loader import CustomDatasetDataLoader
+    from hoig_torch.options.train_options import TrainOptions
+    from hoig_torch.train.model_api import flow_only, forward_only
+
+    root = out_dir / "drivers"
+    ck = root / "checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--dataset_mode", "synthetic", "--image_size", str(IMAGE), "--batch_size",
+              str(BATCH), "--conv_dim", "64", "--repeat_num", "6", "--bf16", "--use_spade",
+              "--checkpoints_dir", str(ck), "--name", "drivers"]
+    train_args = common + ["--use_vgg", "--mask_bce", "--synthetic_size", str(3 * BATCH),
+                           "--nepochs_no_decay", "1", "--nepochs_decay", "0"]
+    out = {}
+    try:
+        # the loader alone: three batches of the training split
+        opt = TrainOptions().parse(train_args)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in CustomDatasetDataLoader(opt, is_for_train=True).load_data())
+        out["loader_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / n
+        check(n == 3, f"the loader gave {n} batches of {3 * BATCH} samples at batch {BATCH}")
+
+        # 1. train_torch.Train: one epoch of 3 steps
+        torch.cuda.reset_peak_memory_stats()
+        with DriverProbe().attached() as probe:
+            t0 = time.perf_counter()
+            run = train_torch.Train(train_args)
+            train_s = time.perf_counter() - t0
+        out["train_peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        check(len(probe.steps) == 3, f"{len(probe.steps)} train steps, not 3")
+        for i, (_, launches) in enumerate(probe.steps):
+            check(launches == LAUNCHES_PER_STEP,
+                  f"driver step {i + 1} launches {launches} != {LAUNCHES_PER_STEP}")
+        for losses, _, launches in probe.forwards:
+            check(launches == LAUNCHES_PER_CALL, f"driver forward launches {launches}")
+        flags = [losses for losses, _, _ in probe.forwards]
+        check(flags == [False, True], f"forwards in training (compute_losses) {flags}: the first "
+              "display must run the visuals forward and one validation forward")
+        errors = run.model.get_current_errors()
+        check(all(math.isfinite(v) for v in errors.values()), f"non-finite errors {errors}")
+        summary = json.loads((ck / "drivers" / "summary.json").read_text())
+        log_text = (ck / "drivers" / "loss_log2.txt").read_text()
+        check("Test/g_rec" in summary and "(V, epoch: 1" in log_text,
+              "the first display did not log the validation losses")
+        want = {f"{k}_epoch_1_id_{n}.pth" for k in ("net", "opt") for n in "GD"}
+        files = set(p.name for p in (ck / "drivers").iterdir())
+        check(want <= files, f"epoch-1 checkpoint files missing: {sorted(want - files)}")
+        out["checkpoint_gb"] = sum((ck / "drivers" / f).stat().st_size for f in want) / 1e9
+        g_saved = {k: v.detach().cpu().clone() for k, v in run.model._state.g.state_dict().items()}
+        # the loop's iterations: from one training batch's set_input to the next
+        starts = [t for t, is_train in probe.inputs if is_train]
+        iters = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+        out.update(train_s=train_s, train_step_ms=statistics.median(s for s, _ in probe.steps),
+                   train_step_ms_all=[s for s, _ in probe.steps], train_iteration_ms=iters,
+                   direct_step_ms=train["remat"]["step_ms"], train_model_build_s=probe.builds[0],
+                   checkpoint_save_s=probe.saves, train_errors=errors,
+                   train_launches_per_step=probe.steps[0][1])
+        log(f"  train_torch.Train: 3 steps, {statistics.median(s for s, _ in probe.steps):.2f} ms "
+            f"per step (median; phase 7 with the same remat: {train['remat']['step_ms']:.2f}), "
+            f"iterations {', '.join(f'{v:.1f}' for v in iters)} ms, model built in "
+            f"{probe.builds[0]:.2f} s, saves {', '.join(f'{v:.2f}' for v in probe.saves)} s "
+            f"({out['checkpoint_gb']:.2f} GB), peak {out['train_peak_mem_mb']:.0f} MiB")
+        del run, probe
+        torch.cuda.empty_cache()
+
+        # 2. eval_torch.main from that checkpoint, shift engine: 2 batches
+        def run_eval(label, extra, batches):
+            dest = root / label
+            args = common + ["--load_epoch", "1", "--synthetic_size", str(BATCH * batches),
+                             "--output_dir", str(dest), *extra]
+            torch.cuda.reset_peak_memory_stats()
+            with DriverProbe().attached() as probe:
+                model = eval_torch.main(args)
+                t_end = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            check(len(probe.forwards) == batches, f"{label}: {len(probe.forwards)} forwards")
+            for sub in ("source", "imitators", "gt"):
+                pngs = sorted((dest / sub).glob("*.png"))
+                check(len(pngs) == BATCH * batches, f"{label}/{sub}: {len(pngs)} PNGs")
+                check(all(_png_size(p) == (IMAGE, IMAGE) for p in pngs),
+                      f"{label}/{sub}: a PNG is not {IMAGE}x{IMAGE}")
+            return model, probe, _eval_batches(probe, t_end), peak
+
+        model, probe, batches, peak = run_eval("eval_shift", [], 2)
+        g_loaded = model._state.g.state_dict()
+        check(g_loaded.keys() == g_saved.keys() and all(
+            torch.equal(g_loaded[k].cpu(), v) for k, v in g_saved.items()),
+            "the G eval_torch loaded is not bit-equal to the G train_torch saved")
+        for _, _, launches in probe.forwards:
+            check(launches == LAUNCHES_PER_CALL, f"eval batch launches {launches}")
+        batch, fakes = probe.first
+        ref = forward_only(model._state.g, flow_only(batch, model._frozen, model._ccfg), batch,
+                           model._tcfg)
+        check(all(torch.equal(a, b) for a, b in zip(fakes, ref)),
+              "HOIGModel.forward's fakes differ from flow_only + forward_only on batch 1")
+        out.update(eval_model_build_s=probe.builds[0], eval_peak_mem_mb=peak,
+                   eval_batch_ms=[w for w, _ in batches], eval_png_ms=[p for _, p in batches],
+                   eval_batch_ms_without_png=[w - p for w, p in batches],
+                   eval_forward_ms=[s for _, s, _ in probe.forwards],
+                   serving_call_ms=serve["call_ms"], eval_launches_per_batch=probe.forwards[0][2])
+        log(f"  eval_torch.main (shift): batches {', '.join(f'{w:.1f}' for w, _ in batches)} ms, "
+            f"without the PNG writes {', '.join(f'{w - p:.1f}' for w, p in batches)} ms (phase 5's "
+            f"serving call {serve['call_ms']:.2f} ms); loaded G bit-equal to the saved G; the "
+            f"facade's fakes bit-equal to flow_only + forward_only; model built in "
+            f"{probe.builds[0]:.2f} s, peak {peak:.0f} MiB")
+        del model, probe, batch, fakes, ref, g_loaded
+        torch.cuda.empty_cache()
+
+        # 3. the fused engine from the command line: 1 batch
+        model, probe, batches, _ = run_eval("eval_fused", ["--corner_engine", "pallas"], 1)
+        launches = probe.forwards[0][2]
+        check(launches == FUSED_LAUNCHES_PER_CALL,
+              f"fused eval launches {launches} != {FUSED_LAUNCHES_PER_CALL}")
+        out.update(eval_fused_batch_ms=batches[0][0], eval_fused_launches_per_batch=launches)
+        log(f"  eval_torch.main --corner_engine pallas: 1 batch {batches[0][0]:.1f} ms, "
+            f"launches {launches}")
+        del model, probe
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)  # about 2.3 GB per save
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
@@ -1837,7 +2107,15 @@ def main() -> int:
         log(f"  profiler {region}: launches per {'call' if region == 'hoig_serve' else 'step'} {got}")
         check(got == want, f"{region} launches by kernel {got} != {want}")
 
-    # 9. report
+    # 9. the drivers: train_torch.Train, then eval_torch.main from its checkpoint
+    del gen, regions, outs, batch
+    torch.cuda.empty_cache()
+    log(f"[9] drivers: train_torch.Train (3 steps) and eval_torch.main (shift, 2 batches; fused, "
+        f"1 batch) on the synthetic dataset, {IMAGE} px, batch {BATCH}, bf16, conv_dim 64, "
+        "repeat 6")
+    drivers = driver_phase(out_dir, serve, train)
+
+    # 10. report
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -1854,8 +2132,9 @@ def main() -> int:
         kernels.append(row)
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                   kernels=results, cpu_compare=cpu_cmp, serving=serve, training=train,
-                  fused=fused, profile=profile)
+                  fused=fused, profile=profile, drivers=drivers)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
+    log(json.dumps({"drivers": drivers}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Synthetic fixtures."""
+"""Datasets, the loader and the synthetic fixtures."""

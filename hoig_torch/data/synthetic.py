@@ -6,6 +6,7 @@ meshes, tables, poses and images, so both packages can be fed one batch.
 
 from __future__ import annotations
 
+import functools
 import os
 import tempfile
 
@@ -74,13 +75,11 @@ def synthetic_semantics(seed: int = 11) -> dict:
     return {"right": {k: c for k, c in zip(keys, chunks)}}
 
 
-def synthetic_environment(num_objects: int = 2, image_size: int = 256, seed: int = 0,
-                          device="cuda") -> dict:
-    """Tables, MANO model and object vertices, host-side and on `device`.
-
-    Returns dict(tables_np, tables, mano, mano_params, obj_verts). The mesh
-    files are written to a temporary directory that is removed after the
-    tables are built."""
+@functools.cache
+def host_environment(num_objects: int, image_size: int, seed: int):
+    """(tables_np, mano, obj_verts), built once per configuration: the UV
+    atlases are rasterized on the host, which takes seconds at 256 px.
+    Callers share the result and must not change it."""
     mano = MANOModel.synthetic(seed)
     specs, verts = [], []
     with tempfile.TemporaryDirectory(prefix="hoig_synth_") as d:
@@ -92,6 +91,18 @@ def synthetic_environment(num_objects: int = 2, image_size: int = 256, seed: int
             specs.append(ObjectSpec(name=f"{i:03d}_synthetic", obj_path=p))
         tables_np = build_surface_tables(hand_path, specs, synthetic_semantics(),
                                          image_size=image_size)
+    return tables_np, mano, verts
+
+
+def synthetic_environment(num_objects: int = 2, image_size: int = 256, seed: int = 0,
+                          device="cuda") -> dict:
+    """Tables, MANO model and object vertices, host-side and on `device`.
+
+    Returns dict(tables_np, tables, mano, mano_params, obj_verts). The
+    host-side parts are built once per (num_objects, image_size, seed), from
+    mesh files in a temporary directory that is removed after the tables are
+    built; the device tensors are made anew on each call."""
+    tables_np, mano, verts = host_environment(num_objects, image_size, seed)
     return dict(tables_np=tables_np, tables=tables_np.as_torch(device), mano=mano,
                 mano_params=mano.as_torch(device), obj_verts=verts)
 

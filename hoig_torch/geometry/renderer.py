@@ -37,7 +37,8 @@ SEM_HAND_PARTS = ("palm", "thumb", "index_finger", "middle_finger", "ring_finger
 
 @dataclasses.dataclass
 class ObjectSpec:
-    """One rigid object: mesh path (textured objects are not ported yet)."""
+    """One rigid object: mesh path and, optionally, its texture image (any
+    size; read with cv2 and resized to the table's image size)."""
 
     name: str
     obj_path: str
@@ -76,6 +77,19 @@ def _rasterize_uv_atlas(vts01: np.ndarray, faces_vts: np.ndarray, image_size: in
     return fim[0].numpy(), wim[0].numpy()
 
 
+def _object_texture(path: str | None, image_size: int) -> np.ndarray:
+    """(3, S, S) texture in [-1, 1], RGB; zeros for an untextured object."""
+    if path is None:
+        return np.zeros((3, image_size, image_size), np.float32)
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise FileNotFoundError(f"cannot read the object texture {path}")
+    img = cv2.resize(img[:, :, ::-1], (image_size, image_size))
+    return (img.astype(np.float32) / 255.0 * 2.0 - 1.0).transpose(2, 0, 1)
+
+
 def build_surface_tables(hand_uv_obj_path: str, objects: list, sem_hand: dict | str,
                          map_name: str = "uv_seg", image_size: int = 256,
                          obj_shift_per_index: bool = True) -> SurfaceTables:
@@ -95,8 +109,6 @@ def build_surface_tables(hand_uv_obj_path: str, objects: list, sem_hand: dict | 
 
     per_obj = []
     for i, spec in enumerate(objects):
-        if spec.texture_path is not None:
-            raise NotImplementedError("textured objects are not ported yet")
         info = mesh_utils.load_obj(spec.obj_path)
         faces = np.concatenate([hand_faces, info["faces"] + NUM_HAND_VERTS], axis=0)
         obj_map_fn = mesh_utils.create_mapping(map_name, spec.obj_path, contain_bg=True)
@@ -123,7 +135,7 @@ def build_surface_tables(hand_uv_obj_path: str, objects: list, sem_hand: dict | 
             map_fn=np.concatenate([hand_map_fn[:-1], obj_map_fn], axis=0), sem=sem,
             fim_uv=fim_uv, wim_uv=wim_uv,
             faces_uv_coord=(uv_coord - ATLAS_MEAN) * ATLAS_SCALE,
-            obj_tex=np.zeros((3, image_size, image_size), np.float32),
+            obj_tex=_object_texture(spec.texture_path, image_size),
         ))
 
     n_obj = len(per_obj)

@@ -5,7 +5,7 @@ Files are `net_epoch_{E}_id_{G|D}.pth` and `opt_epoch_{E}_id_{G|D}.pth`
 under checkpoints_dir/name, so the reference's auto-resume scan
 (`startswith("net_epoch_")`, epoch = int(name.split('_')[2])) keeps
 working. The payload is `torch.save` of state dicts, read back with
-`weights_only=True`.
+`weights_only=True`; a generator also loads from an `.npz` dump.
 """
 
 from __future__ import annotations
@@ -61,12 +61,23 @@ def load_checkpoint(save_dir: str, epoch, state, load_optimizers: bool = True):
     return state
 
 
+def load_state_dict_file(path: str, device="cpu") -> dict:
+    """A state dict from a torch file (`.pth`, `.pt`) or from its `.npz`
+    dump (scripts/convert_weights.py writes one array per key)."""
+    if path.endswith(".npz"):
+        import numpy as np
+
+        with np.load(path) as arrays:
+            return {k: torch.from_numpy(arrays[k]).to(device) for k in arrays.files}
+    return _load(path, device)
+
+
 def load_generator_params(g_model: torch.nn.Module, load_path: str) -> torch.nn.Module:
-    """Eval-style G-only restore from a generator state dict file (this
-    package's `net_epoch_*_id_G.pth` or the reference's, whose keys are the
-    same)."""
+    """Eval-style G-only restore from a generator state dict: this package's
+    `net_epoch_*_id_G.pth`, the reference's (whose keys are the same), or
+    an `.npz` dump of either."""
     device = next(g_model.parameters()).device
-    g_model.load_state_dict(_strip_module_prefix(_load(load_path, device)))
+    g_model.load_state_dict(_strip_module_prefix(load_state_dict_file(load_path, device)))
     return g_model
 
 

@@ -141,8 +141,9 @@ def _imported_roots(path: Path) -> set:
 
 
 def test_port_imports_no_jax():
-    files = sorted((REPO / "hoig_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 15
+    files = sorted((REPO / "hoig_torch").rglob("*.py")) + [
+        REPO / name for name in ("chip_smoke.py", "train_torch.py", "eval_torch.py")]
+    assert len(files) > 30
     for f in files:
         bad = _imported_roots(f) & _FORBIDDEN
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
