@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path and its GAN training step on one
-NVIDIA GPU, with the shift attention engine and with the fused one, and then
-the port's drivers, train_torch.py and eval_torch.py.
+NVIDIA GPU, with the shift attention engine and with the fused one, then the
+port's drivers, train_torch.py and eval_torch.py, its data-parallel step and
+the metric battery.
 
     python3 chip_smoke.py [--out DIR]   # from the root of a checkout, one card
 
@@ -102,8 +103,27 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      remat, the eval batches with and without the PNG writes beside phase
      5's serving call, model builds, checkpoint saves, peak device memory.
      The checkpoint directory (about 2.3 GB) is deleted at the end;
- 10. print the drivers line, the kernels line, the card line and, last, the
-     result line.
+ 10. data parallelism and the metrics: (a) an NCCL process group of world
+     size 1 in this process; the same first step (fresh weights from seed 0,
+     remat off, D's gate on) twice in one process and once through
+     hoig_torch.parallel.DataParallel, each from launch counters at 0: the
+     data-parallel step's kernel launches are phase 7's (18 / 18 / 9 / 1 /
+     2) and its collectives are counted (the gate's gloo broadcast, the G
+     and D gradient all-reduces, the metrics' all-reduce); its G and D
+     gradients held to the one-process step's within grads_agree's bounds
+     widened by three times the two one-process steps' difference (the
+     bf16 step's run-to-run noise), its updated weights within what Adam's
+     first step makes of the two gradients; the all-reduce of G's and D's
+     flat f32 gradients timed; (b) `python -m torch.distributed.run
+     --standalone --nproc_per_node 1 train_torch.py` for one epoch of 3
+     synthetic steps at full width: exit 0, its epoch-1 checkpoint, its
+     iterations (from its log) beside phase 9's; (c) FID, LPIPS, SSIM and
+     MS-SSIM over phase 9's eval tree (imitators/ against gt/) with seeded
+     random Inception and LPIPS weights, on the card and on the CPU, within
+     the CPU tests' bounds, FID of gt/ against itself below 1e-3, and the
+     decode, resize, Inception and LPIPS times per image;
+ 11. print the drivers line, the phase 10 line, the kernels line, the card
+     line and, last, the result line.
 
 Details (result.json, profile.txt, build.txt: the compiler's report) go to
 --out, by default build/chip_smoke/.
@@ -1963,6 +1983,257 @@ def driver_phase(out_dir: Path, serve: dict, train: dict) -> dict:
     return out
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _weights_close(got: dict, want: dict, got_grads: dict, want_grads: dict, lr: float,
+                   label: str) -> float:
+    """Adam's first step moves a weight by lr * g / (|g| + eps), so two
+    gradients a and b leave it within lr * min(2, 2 |a - b| / (max(|a|,
+    |b|) + eps)) of itself, plus the rounding of the update and of the
+    subtraction (four f32 ulps of the weight and of lr). Returns the largest
+    difference as a share of lr."""
+    import torch
+
+    ulp = torch.finfo(torch.float32).eps
+    worst = 0.0
+    for k, w in want.items():
+        a, b = got_grads[k].float(), want_grads[k].float()
+        move = lr * torch.clamp(2 * (a - b).abs() / (torch.maximum(a.abs(), b.abs()) + 1e-8),
+                                max=2.0)
+        diff = (got[k] - w).abs()
+        check(bool((diff <= move + 4 * ulp * (w.abs() + lr)).all()),
+              f"{label} {k}: the updated weight differs by {float(diff.max())} beyond what its "
+              "gradients' difference allows")
+        worst = max(worst, float(diff.max()) / lr)
+    return worst
+
+
+def ddp_phase(env, ccfg) -> dict:
+    """Phase 10a: the data-parallel step (hoig_torch.parallel.DataParallel)
+    in an NCCL process group of world size 1, at full width (see the module
+    docstring). Returns its numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from hoig_torch import parallel
+    from hoig_torch.data.synthetic import synthetic_batch
+    from hoig_torch.models.vgg import init_vgg
+    from hoig_torch.ops import _cuda
+    from hoig_torch.train.model_api import batch_as_torch
+    from hoig_torch.train.trainer import build_networks, init_state, make_train_step
+
+    batch = batch_as_torch(synthetic_batch(BATCH, env["obj_verts"], image_size=IMAGE), "cuda")
+    tcfg = train_config("shift", remat=False)
+
+    def one_step(sync: bool):
+        """A fresh state (seed 0) and one step with D's gate on, launches from
+        counters at 0; its G and D gradients and weights after the step."""
+        state = init_state(*build_networks(tcfg, device="cuda", seed=0), tcfg)
+        dp = parallel.DataParallel(state) if sync else None
+        step = make_train_step(init_vgg(seed=2, compute_dtype=torch.bfloat16, device="cuda"),
+                               env["tables"], env["mano_params"], ccfg, tcfg, sync=dp)
+        torch.backends.cudnn.deterministic = True
+        try:
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            state, metrics = step(state, batch, True)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        launches = _cuda.launch_counts()
+        check(launches == LAUNCHES_PER_STEP,
+              f"{'data-parallel' if sync else 'one-process'} step launches {launches}")
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"non-finite {metrics}")
+        nets = (("g", state.g), ("d", state.d))
+        grads = {f"{n}.{k}": p.grad.detach().clone() for n, net in nets
+                 for k, p in net.named_parameters()}
+        weights = {f"{n}.{k}": p.detach().clone() for n, net in nets
+                   for k, p in net.named_parameters()}
+        return state, dp, launches, grads, weights, metrics
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        log("  (a) NCCL process group of world size 1, one card")
+        out = {}
+        state, _, _, ref_g, ref_w, ref_m = one_step(sync=False)
+        del state
+        _, _, _, again_g, _, _ = one_step(sync=False)
+        noise = {k: max_err(again_g[k], v) for k, v in ref_g.items()}
+        n_equal = sum(torch.equal(again_g[k], v) for k, v in ref_g.items())
+        del again_g
+        torch.cuda.empty_cache()
+        state, dp, launches, dp_g, dp_w, dp_m = one_step(sync=True)
+        want = {"broadcast_gate": 1, "all_reduce_g": 1, "all_reduce_d": 1, "all_reduce_metrics": 1}
+        check(dict(dp.collectives) == want, f"data-parallel step collectives {dict(dp.collectives)}")
+        agree = {}
+        for net in ("g", "d"):
+            pick = lambda d: {k: v for k, v in d.items() if k.startswith(net + ".")}
+            agree[net] = grads_agree(pick(dp_g), pick(ref_g), f"data-parallel {net.upper()} vs one "
+                                     "process", slack={k: 3.0 * noise[k] for k in pick(ref_g)})
+        lr = tcfg.lr_G
+        worst_w = _weights_close(dp_w, ref_w, dp_g, ref_g, lr, "data-parallel vs one process")
+        metric_err = max(abs(float(dp_m[k]) - float(ref_m[k])) / max(abs(float(ref_m[k])), 1e-6)
+                         for k in ref_m)
+        # one rank: the averaged metrics are the step's own (a sanity bound;
+        # the two-rank means are held to the global batch's by the CPU tests)
+        check(metric_err <= 1e-2, f"data-parallel metrics {dp_m} vs one process {ref_m}")
+        n_g = dp.flat["g"].numel()
+        n_d = dp.flat["d"].numel()
+        ms_g = device_ms(lambda: dist.all_reduce(dp.flat["g"]))
+        ms_d = device_ms(lambda: dist.all_reduce(dp.flat["d"]))
+        bound_g, _ = bound_ms(2 * 4 * n_g, 0.0)
+        bound_d, _ = bound_ms(2 * 4 * n_d, 0.0)
+        out.update(launches=launches, collectives=dict(dp.collectives),
+                   one_process_twice_bit_equal_leaves=n_equal, leaves=len(ref_g),
+                   grads_g=agree["g"], grads_d=agree["d"], weights_max_diff_of_lr=worst_w,
+                   metrics_max_rel_err=metric_err, all_reduce_g_ms=ms_g, all_reduce_d_ms=ms_d,
+                   all_reduce_g_bound_ms=bound_g, all_reduce_d_bound_ms=bound_d,
+                   all_reduce_g_mb=4 * n_g / 1e6, all_reduce_d_mb=4 * n_d / 1e6)
+        log(f"  data-parallel step: kernel launches {launches} (phase 7's), collectives "
+            f"{dict(dp.collectives)}; G gradients {agree['g']['bit_equal_leaves']} of "
+            f"{agree['g']['leaves']} leaves bit-equal to the one-process step's (two one-process "
+            f"steps: {n_equal} of {len(ref_g)}), worst {agree['g']['grad_err_of_leaf_max']:.3g} of a "
+            f"leaf's max; D {agree['d']['bit_equal_leaves']} of {agree['d']['leaves']}; weights "
+            f"within {worst_w:.3g} lr; metrics within {metric_err:.3g} relative")
+        log(f"  all_reduce of the flat f32 gradients: G {n_g / 1e6:.1f} M ({4 * n_g / 1e6:.0f} MB) "
+            f"{ms_g:.4f} ms (read + write bound {bound_g:.4f}), D {n_d / 1e6:.1f} M {ms_d:.4f} ms "
+            f"(bound {bound_d:.4f}); one rank, so NCCL has no peer to reduce with")
+        del state, dp, ref_g, ref_w, dp_g, dp_w
+    finally:
+        parallel.shutdown()
+        torch.cuda.empty_cache()
+    return out
+
+
+def torchrun_phase(out_dir: Path, drivers: dict) -> dict:
+    """Phase 10b: train_torch.py under torchrun, one process, 3 synthetic
+    steps at full width; its iterations from its log beside phase 9's."""
+    import os
+    import shutil
+    import signal
+
+    root = out_dir / "torchrun"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           str(REPO / "train_torch.py"), "--dataset_mode", "synthetic", "--image_size",
+           str(IMAGE), "--batch_size", str(BATCH), "--conv_dim", "64", "--repeat_num", "6",
+           "--bf16", "--use_spade", "--use_vgg", "--mask_bce", "--synthetic_size", str(3 * BATCH),
+           "--nepochs_no_decay", "1", "--nepochs_decay", "0", "--print_freq_s", "0",
+           "--checkpoints_dir", str(root / "ck"), "--name", "ddp"]
+    log_path = root / "train.log"
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as fp:
+            proc = subprocess.Popen(cmd, cwd=REPO, stdout=fp, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            try:
+                rc = proc.wait(timeout=400)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                rc = "timeout"
+        wall = time.perf_counter() - t0
+        text = log_path.read_text()
+        check(rc == 0, f"torchrun train_torch.py exited {rc}:\n{text[-3000:]}")
+        t_smpl = [float(m) for m in re.findall(r"\(Tv?, epoch: 1, it: \d+/[\d.]+, t/smpl: "
+                                                 r"([\d.]+)s\)", text)]
+        check(len(t_smpl) == 3, f"torchrun run logged {len(t_smpl)} iterations, not 3")
+        files = {p.name for p in (root / "ck" / "ddp").iterdir()}
+        want = {f"{k}_epoch_1_id_{n}.pth" for k in ("net", "opt") for n in "GD"}
+        check(want <= files, f"torchrun run's checkpoints missing: {sorted(want - files)}")
+    finally:
+        shutil.rmtree(root / "ck", ignore_errors=True)  # about 2.3 GB
+    iters = [t * BATCH * 1e3 for t in t_smpl]
+    log(f"  (b) torchrun --nproc_per_node 1 train_torch.py: exit 0 after {wall:.1f} s; iterations "
+        f"{', '.join(f'{v:.0f}' for v in iters)} ms (its log's t/smpl x batch {BATCH}); phase 9's "
+        f"iterations {', '.join(f'{v:.0f}' for v in drivers['train_iteration_ms'])} ms, steps "
+        f"{', '.join(f'{v:.0f}' for v in drivers['train_step_ms_all'])} ms")
+    return dict(wall_s=wall, iteration_ms=iters, phase9_iteration_ms=drivers["train_iteration_ms"],
+                phase9_step_ms=drivers["train_step_ms_all"])
+
+
+def metrics_phase(out_dir: Path) -> dict:
+    """Phase 10c: FID, LPIPS, SSIM and MS-SSIM over phase 9's eval tree, on
+    the card and on the CPU, with seeded random network weights."""
+    import numpy as np
+    import torch
+
+    from hoig_torch.metrics import fid, image_loader, lpips
+    from hoig_torch.metrics.inception import init_inception
+    from hoig_torch.metrics.precision import f32_exact
+    from hoig_torch.metrics.ssim import calculate_ssim_given_paths
+    from hoig_torch.utils.util import read_png
+
+    tree = out_dir / "drivers" / "eval_shift"
+    pair = [str(tree / "imitators"), str(tree / "gt")]
+    files = [str(p) for sub in pair for p in sorted(Path(sub).glob("*.png"))]
+    check(len(files) == 4 * BATCH, f"the eval tree holds {len(files)} PNGs, not {4 * BATCH}")
+    out = {"images": len(files)}
+
+    # per image, on the host: decode, then the loader's resize (256 -> 299)
+    t0 = time.perf_counter()
+    imgs = [read_png(f) for f in files]
+    out["decode_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / len(files)
+    t0 = time.perf_counter()
+    for img in imgs:
+        image_loader.pil_bilinear_resize(img, (299, 299))
+    out["resize_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / len(files)
+    # per image, on the card: the Inception (its 256 -> 299 resize included)
+    # and LPIPS, a batch of 8 at a time
+    x = torch.from_numpy(np.stack(imgs[:BATCH * 2]).astype(np.float32) / 255.0).permute(
+        0, 3, 1, 2).contiguous().cuda()
+    net = init_inception().cuda()
+    lp = lpips.init_lpips().cuda()
+    y = torch.nn.functional.interpolate(x, size=(299, 299), mode="bilinear")
+    with torch.no_grad(), f32_exact():
+        out["inception_ms_per_image"] = device_ms(lambda: net(x), reps=5,
+                                                  behind_sleep=False) / x.shape[0]
+        out["lpips_ms_per_image"] = device_ms(lambda: lp(y, y.flip(0)), reps=5,
+                                              behind_sleep=False) / x.shape[0]
+    del x, y, net, lp
+
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        model_fn = fid.make_inception(None, device=dev)
+        stats[dev] = [fid.compute_statistics_of_path(p, model_fn, batch_size=2 * BATCH)
+                      for p in pair]
+    fids = {dev: fid.calculate_frechet_distance(*s[0], *s[1]) for dev, s in stats.items()}
+    same = fid.calculate_frechet_distance(*stats["cuda"][1], *stats["cuda"][1])
+    lp = {dev: lpips.calculate_lpips_given_paths(pair, IMAGE, 2 * BATCH, device=dev)
+          for dev in ("cuda", "cpu")}
+    ss = {dev: calculate_ssim_given_paths(pair, IMAGE, 2 * BATCH, device=dev)
+          for dev in ("cuda", "cpu")}
+    check(all(math.isfinite(v) for v in (*fids.values(), *lp.values(), *ss["cuda"], *ss["cpu"])),
+          f"non-finite metrics: FID {fids}, LPIPS {lp}, SSIM {ss}")
+    # the CPU tests' bounds: FID 1e-3 relative, LPIPS 1e-5 relative, SSIM 1e-5
+    check(abs(fids["cuda"] - fids["cpu"]) <= 1e-3 * abs(fids["cpu"]),
+          f"FID card {fids['cuda']} vs CPU {fids['cpu']}")
+    check(abs(lp["cuda"] - lp["cpu"]) <= 1e-5 * abs(lp["cpu"]),
+          f"LPIPS card {lp['cuda']} vs CPU {lp['cpu']}")
+    check(all(abs(a - b) <= 1e-5 for a, b in zip(ss["cuda"], ss["cpu"])),
+          f"SSIM / MS-SSIM card {ss['cuda']} vs CPU {ss['cpu']}")
+    check(abs(same) < 1e-3, f"FID of gt/ against itself {same}")
+    out.update(fid=fids, fid_self=same, lpips=lp, ssim={d: v[0] for d, v in ss.items()},
+               ms_ssim={d: v[1] for d, v in ss.items()})
+    log(f"  (c) metrics over phase 9's eval tree ({len(files) // 2} pairs, seeded random "
+        f"Inception and LPIPS weights: only the times mean anything): FID card {fids['cuda']:.6g} / "
+        f"CPU {fids['cpu']:.6g}, gt against itself {same:.3g}; LPIPS {lp['cuda']:.6g} / "
+        f"{lp['cpu']:.6g}; SSIM {ss['cuda'][0]:.6f} / {ss['cpu'][0]:.6f}, MS-SSIM "
+        f"{ss['cuda'][1]:.6f} / {ss['cpu'][1]:.6f}")
+    log(f"  per image: decode {out['decode_ms_per_image']:.2f} ms, resize 256 -> 299 "
+        f"{out['resize_ms_per_image']:.2f} ms (host); Inception {out['inception_ms_per_image']:.3f} "
+        f"ms, LPIPS {out['lpips_ms_per_image']:.3f} ms (card, f32, TF32 off)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
@@ -2115,7 +2386,14 @@ def main() -> int:
         "repeat 6")
     drivers = driver_phase(out_dir, serve, train)
 
-    # 10. report
+    # 10. data parallelism (hoig_torch.parallel) and the metric battery
+    log(f"[10] data-parallel training (NCCL, one rank) and the metrics, {IMAGE} px, batch "
+        f"{BATCH}, bf16, conv_dim 64, repeat 6")
+    ddp = ddp_phase(env, ccfg)
+    ddp["torchrun"] = torchrun_phase(out_dir, drivers)
+    metrics = metrics_phase(out_dir)
+
+    # 11. report
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -2132,9 +2410,10 @@ def main() -> int:
         kernels.append(row)
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                   kernels=results, cpu_compare=cpu_cmp, serving=serve, training=train,
-                  fused=fused, profile=profile, drivers=drivers)
+                  fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"drivers": drivers}, default=str))
+    log(json.dumps({"ddp": ddp, "metrics": metrics}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

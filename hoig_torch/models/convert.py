@@ -223,6 +223,51 @@ def vgg_state_dict_from_flax(params_np: dict) -> dict:
     return _state_dict_from_flax(params_np, vgg_mapping())
 
 
+def inception_state_dict_from_flax(variables_np: dict) -> dict:
+    """flax FIDInceptionV3 variables ({"params", "batch_stats"}, numpy
+    leaves) -> state dict of the port's FIDInceptionV3 (pytorch-fid's keys;
+    `num_batches_tracked` is not carried). Raises if a leaf is left over."""
+    state = {}
+
+    def walk(params: dict, stats: dict, prefix: str):
+        for name, node in params.items():
+            key = f"{prefix}{name}"
+            if name == "conv":
+                state[f"{key}.weight"] = torch.tensor(_to_torch(_CONV, node.pop("kernel")))
+            elif name == "bn":
+                bn_stats = stats[name]
+                for src, dst, tree in (("scale", "weight", node), ("bias", "bias", node),
+                                       ("mean", "running_mean", bn_stats),
+                                       ("var", "running_var", bn_stats)):
+                    state[f"{key}.{dst}"] = torch.tensor(np.asarray(tree.pop(src), np.float32))
+            else:
+                walk(node, stats.get(name, {}), key + ".")
+
+    params = _copy_tree(variables_np["params"])
+    stats = _copy_tree(variables_np["batch_stats"])
+    walk(params, stats, "")
+    left = [p for p in (*_leaf_paths(params), *_leaf_paths(stats))]
+    if left:
+        raise ValueError(f"{len(left)} flax leaves not covered, e.g. {left[:3]}")
+    return state
+
+
+def lpips_state_dict_from_flax(params_np: dict) -> dict:
+    """flax LPIPSNet tree (with or without the 'params' level) -> state dict
+    of the port's LPIPSNet: `alexnet.features.{0,3,6,8,10}` (torchvision's
+    indices) and `lpips_weights.{i}.main.1.weight`."""
+    mapping = []
+    for i, ti in enumerate((0, 3, 6, 8, 10)):
+        mapping += [(("alexnet", f"conv_{i}", "kernel"), f"alexnet.features.{ti}.weight", _CONV),
+                    (("alexnet", f"conv_{i}", "bias"), f"alexnet.features.{ti}.bias", _DIRECT),
+                    ((f"lin_{i}", "kernel"), f"lpips_weights.{i}.main.1.weight", _CONV)]
+    return _state_dict_from_flax(params_np, mapping)
+
+
+def _copy_tree(tree: dict) -> dict:
+    return {k: _copy_tree(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+
 def flax_tree_from_torch(named: dict, mapping) -> dict:
     """{torch key: tensor} (a state dict, or gradients by parameter name) ->
     nested dict of numpy arrays on the flax tree's paths and layouts.

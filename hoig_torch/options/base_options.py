@@ -13,6 +13,7 @@ import argparse
 import os
 
 from hoig_torch.ops._cuda import resolve_device
+from hoig_torch.parallel import process_is_primary
 
 
 class BaseOptions:
@@ -106,9 +107,10 @@ class BaseOptions:
         self._set_and_check_load_epoch()
 
         opts = vars(self._opt)
-        if not self._opt.is_train or getattr(self._opt, "local_rank", 0) <= 0:
+        # under torchrun, rank 0 alone prints and writes the options
+        if process_is_primary():
             self._print(opts)
-        self._save(opts)
+            self._save(opts)
         return self._opt
 
     def _set_and_check_load_epoch(self):

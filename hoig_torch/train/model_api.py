@@ -7,8 +7,10 @@ reference's Trainer surface (models/trainer.py:188-595): set_input /
 forward / optimize_parameters / save / load / update_learning_rate /
 get_current_{errors,visuals,scalars} / set_train / set_eval, over
 `make_train_step`, `make_eval_metrics`, `decay_lr` and the checkpoints.
-One process drives one device: there is no mesh, so nothing is replicated,
-sharded or padded, and a partial batch runs as it is.
+One process drives one device: nothing is sharded or padded, and a partial
+batch runs as it is. Under torchrun each process is one rank of the data-
+parallel run (hoig_torch.parallel): the facade's step then averages the
+gradients and metrics over the ranks.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from hoig_torch.geometry.conditioning import ConditioningConfig, hand_recovery_flow
 from hoig_torch.models.vgg import init_vgg
 from hoig_torch.ops._cuda import resolve_device
+from hoig_torch.parallel import DataParallel, is_distributed
 from hoig_torch.train import checkpoints as ckpt
 from hoig_torch.train.environment import build_environment, train_config_from_opt
 from hoig_torch.train.trainer import (
@@ -128,15 +131,19 @@ class HOIGModel:
                   "(seeded weights)")
 
         self._state = init_state(g, d, self._tcfg)
-        self._train_step = make_train_step(self._vgg, self._frozen["tables"],
-                                           self._frozen["mano_params"], self._ccfg, self._tcfg)
         self._eval_fn = make_eval_metrics(self._vgg, self._tcfg)
 
         # load networks (reference __init__ tail, trainer.py:206-210)
         if getattr(opt, "load_path", None) not in (None, "None"):
-            ckpt.load_generator_params(self._state.g, opt.load_path)
+            ckpt.load_generator_params(self._state.g, opt.load_path, self._tcfg)
         elif getattr(opt, "load_epoch", 0) > 0:
             self.load()
+        # under torchrun, rank 0's weights go to every rank (after the load)
+        # and the step averages the gradients over the ranks
+        self._dp = DataParallel(self._state) if self._is_train and is_distributed() else None
+        self._train_step = make_train_step(self._vgg, self._frozen["tables"],
+                                           self._frozen["mano_params"], self._ccfg, self._tcfg,
+                                           sync=self._dp)
 
         self._errors = {}
         self._visuals = OrderedDict()
@@ -210,7 +217,7 @@ class HOIGModel:
 
     def load(self):
         ckpt.load_checkpoint(self._save_dir, self._opt.load_epoch, self._state,
-                             load_optimizers=self._is_train)
+                             load_optimizers=self._is_train, tcfg=self._tcfg)
 
     def update_learning_rate(self):
         old = self._state.lr_g

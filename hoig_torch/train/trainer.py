@@ -253,37 +253,60 @@ def _d_losses(d_model, tcfg: TrainConfig, flow, batch, fake_tsf):
 
 
 def make_train_step(vgg_model, tables: dict, mano_params: dict, ccfg: ConditioningConfig,
-                    tcfg: TrainConfig) -> Callable:
+                    tcfg: TrainConfig, sync=None) -> Callable:
     """Returns train_step(state, batch, d_trainable) -> (state, metrics).
 
     batch: dict of tensors on the networks' device with imageA / imageB
     (B, 3, S, S) in [-1, 1], optional maskA / maskB (B, 1, S, S) and the
     manoA / manoB theta dicts. d_trainable: a host bool; False leaves D's
     parameters and its Adam state untouched (loss_D, d_real and d_fake are
-    still returned). `state` is updated in place and returned."""
+    still returned). `state` is updated in place and returned.
+
+    sync: None for one process, or a `hoig_torch.parallel.DataParallel` of
+    `state` for data-parallel training. It then agrees on rank 0's
+    d_trainable, zeroes each network's flat gradient buffer before its
+    backward, averages the gradients over the ranks after it (before the
+    Adam step), and averages the metrics."""
     vgg_loss = _train_vgg_loss(vgg_model, tcfg)
 
+    def zero_grad(opt, net: str):
+        if sync is None:
+            opt.zero_grad(set_to_none=True)
+        else:
+            sync.zero_grad(net)
+
     def train_step(state: TrainState, batch: dict, d_trainable: bool):
+        if sync is not None:
+            # the ranks' gates come from their own clocks: a rank that skipped
+            # D's backward would leave the others waiting in its all-reduce
+            d_trainable = sync.agree(d_trainable)
         flow = _conditioning(tables, mano_params, batch, ccfg)
         g_params = [p for p in state.g.parameters() if p.requires_grad]
         fakes, loss_g, parts, _ = _forward_and_g_losses(state.g, state.d, vgg_loss, tcfg, flow,
                                                         batch)
-        state.opt_g.zero_grad(set_to_none=True)
+        zero_grad(state.opt_g, "g")
         loss_g.backward(inputs=g_params)  # w.r.t. G only: D's .grad stays untouched
+        if sync is not None:
+            sync.reduce_grads("g")
         state.opt_g.step()
 
         if d_trainable:
             d_params = [p for p in state.d.parameters() if p.requires_grad]
             loss_d, d_aux = _d_losses(state.d, tcfg, flow, batch, fakes[1])
-            state.opt_d.zero_grad(set_to_none=True)
+            zero_grad(state.opt_d, "d")
             loss_d.backward(inputs=d_params)
+            if sync is not None:
+                sync.reduce_grads("d")
             state.opt_d.step()
         else:
             with torch.no_grad():
                 loss_d, d_aux = _d_losses(state.d, tcfg, flow, batch, fakes[1])
         state.step += 1
-        metrics = {"loss_G": loss_g, "loss_D": loss_d, **parts, **d_aux}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in
+                   {"loss_G": loss_g, "loss_D": loss_d, **parts, **d_aux}.items()}
+        if sync is not None:
+            metrics = sync.mean_metrics(metrics)
+        return state, metrics
 
     return train_step
 

@@ -1,7 +1,8 @@
 """Image and file utilities (port of hoig_tpu/utils/util.py; reference
 utils/util.py): tensor2im / tensor2maskim with grid tiling, the 16-colour
-label Colorize map, pickle and json helpers, mkdirs. All numpy: the model
-facade hands these host arrays.
+label Colorize map, pickle and json helpers, mkdirs, and a stdlib PNG
+encoder and decoder (no PIL or cv2). All numpy: the model facade hands
+these host arrays.
 """
 
 from __future__ import annotations
@@ -138,6 +139,110 @@ def encode_png(image: np.ndarray) -> bytes:
             + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
             + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _png_chunk(b"IEND", b""))
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# samples per pixel of each 8-bit color type: gray, RGB, palette, gray +
+# alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _unfilter_average(line: bytes, prev: bytes, bpp: int) -> bytearray:
+    cur = bytearray(line)
+    for i in range(bpp):
+        cur[i] = (cur[i] + (prev[i] >> 1)) & 0xFF
+    for i in range(bpp, len(cur)):
+        cur[i] = (cur[i] + ((cur[i - bpp] + prev[i]) >> 1)) & 0xFF
+    return cur
+
+
+def _unfilter_paeth(line: bytes, prev: bytes, bpp: int) -> bytearray:
+    cur = bytearray(line)
+    for i in range(bpp):  # no left neighbour: the predictor is the one above
+        cur[i] = (cur[i] + prev[i]) & 0xFF
+    for i in range(bpp, len(cur)):
+        a, b, c = cur[i - bpp], prev[i], prev[i - bpp]
+        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        cur[i] = (cur[i] + pred) & 0xFF
+    return cur
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The bytes of an 8-bit, non-interlaced PNG of color type 0, 2, 3, 4 or
+    6 -> (H, W, 3) uint8 RGB, as PIL's `Image.open(f).convert("RGB")`
+    gives it: alpha dropped, gray replicated, a palette looked up. All five
+    scanline filters are undone (PIL chooses them per line). Any other PNG,
+    a bad CRC or a palette index past the palette raises ValueError."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, header, palette, idat = 8, None, None, []
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("PNG ends before its IEND chunk")
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body, crc = data[pos + 8:pos + 8 + n], data[pos + 8 + n:pos + 12 + n]
+        if len(body) != n or len(crc) != 4:
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(">I", crc)[0]:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        elif not kind[0] & 0x20:  # an unknown critical chunk (ancillary ones are skipped)
+            raise ValueError(f"PNG chunk {kind!r} is not supported")
+    if header is None:
+        raise ValueError("PNG has no IHDR chunk")
+    w, h, depth, ctype, compression, filter_method, interlace = header
+    if depth != 8 or ctype not in _PNG_CHANNELS or compression or filter_method or interlace:
+        raise ValueError(f"PNG of bit depth {depth}, color type {ctype}, interlace {interlace}: "
+                         "only 8-bit, non-interlaced color types 0, 2, 3, 4 and 6 are read")
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without a PLTE chunk")
+    ch = _PNG_CHANNELS[ctype]
+    stride = w * ch
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != h * (stride + 1):
+        raise ValueError(f"PNG image data holds {len(raw)} bytes, not {h * (stride + 1)}")
+    out = np.empty((h, stride), np.uint8)
+    prev = bytes(stride)
+    for y in range(h):
+        kind, line = raw[y * (stride + 1)], raw[y * (stride + 1) + 1:(y + 1) * (stride + 1)]
+        if kind == 0:
+            out[y] = np.frombuffer(line, np.uint8)
+        elif kind == 1:  # sub: a running sum per channel, mod 256
+            out[y] = np.cumsum(np.frombuffer(line, np.uint8).reshape(w, ch), axis=0,
+                               dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # up
+            out[y] = np.frombuffer(line, np.uint8) + np.frombuffer(prev, np.uint8)
+        elif kind == 3:
+            out[y] = np.frombuffer(_unfilter_average(line, prev, ch), np.uint8)
+        elif kind == 4:
+            out[y] = np.frombuffer(_unfilter_paeth(line, prev, ch), np.uint8)
+        else:
+            raise ValueError(f"PNG scanline {y} has filter type {kind}")
+        prev = out[y].tobytes()
+    pixels = out.reshape(h, w, ch)
+    if ctype == 3:
+        if pixels.size and int(pixels.max()) >= len(palette):
+            raise ValueError(f"PNG palette index {int(pixels.max())} past its {len(palette)} "
+                             "entries")
+        return palette[pixels[..., 0]]
+    if ch <= 2:  # gray, gray + alpha
+        return np.repeat(pixels[..., :1], 3, axis=2)
+    return np.ascontiguousarray(pixels[..., :3])
+
+
+def read_png(path: str) -> np.ndarray:
+    """A PNG file -> (H, W, 3) uint8 RGB (see decode_png)."""
+    with open(path, "rb") as fp:
+        return decode_png(fp.read())
 
 
 def save_image(image_numpy: np.ndarray, image_path: str) -> None:

@@ -1,0 +1,56 @@
+#! /bin/bash
+# HO3Dv3 training with the PyTorch/CUDA port, in the reference's layout:
+# one process per card through torchrun, 8 processes x batch 4 = global
+# batch 32 (reference scripts/train_hov3_ddp.sh). --batch_size is per card;
+# the processes average their gradients over NCCL (hoig_torch/parallel).
+# NPROC=1 trains on one card. The hyperparameters are those of
+# scripts/train_hov3_ddp.sh.
+
+nproc=${NPROC:-8}
+
+# dataset configs
+dataset_mode=hov3
+data_dir=${DATA_DIR:-/mnt/blob/data/HO3D_v3_mask}
+params_dir=params
+images_dir=images
+
+# saving configs
+checkpoints_dir=checkpoints
+name=exp_hov3_cropped_sr_resplit
+
+# model configs
+model=trainer
+gen_name=generator_spade_attn
+image_size=256
+
+# training configs
+load_path="None"
+batch_size=${BATCH_SIZE:-4}
+lambda_rec=10.0
+lambda_tsf=10.0
+lambda_mask=1.0
+lambda_mask_smooth=1.0
+nepochs_no_decay=15
+nepochs_decay=15
+
+python -m torch.distributed.run --standalone --nproc_per_node ${nproc} train_torch.py \
+        --data_dir                ${data_dir}          \
+        --params_dir              ${params_dir}        \
+        --images_dir              ${images_dir}        \
+        --checkpoints_dir         ${checkpoints_dir}   \
+        --load_path               ${load_path}         \
+        --model                   ${model}             \
+        --gen_name                ${gen_name}          \
+        --name                    ${name}              \
+        --dataset_mode            ${dataset_mode}      \
+        --image_size              ${image_size}        \
+        --batch_size              ${batch_size}        \
+        --lambda_tsf              ${lambda_tsf}        \
+        --lambda_rec              ${lambda_rec}        \
+        --lambda_mask             ${lambda_mask}       \
+        --lambda_mask_smooth      ${lambda_mask_smooth}\
+        --nepochs_no_decay        ${nepochs_no_decay}  \
+        --nepochs_decay           ${nepochs_decay}     \
+        --num_repeats             20                   \
+        --vgg_weights            ${vgg_weights:-assets/weights/vgg19.npz} \
+        --mask_bce --use_vgg --use_spade

@@ -124,7 +124,7 @@ def test_chip_smoke_refuses_without_gpu(tmp_path, alone):
     assert '"ok"' not in proc.stdout and not (tmp_path / "out").exists()
 
 
-_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "hoig_tpu"}
+_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "hoig_tpu"}
 
 
 def _imported_roots(path: Path) -> set:
@@ -142,8 +142,13 @@ def _imported_roots(path: Path) -> set:
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "hoig_torch").rglob("*.py")) + [
-        REPO / name for name in ("chip_smoke.py", "train_torch.py", "eval_torch.py")]
+        REPO / name for name in ("chip_smoke.py", "train_torch.py", "eval_torch.py",
+                                 "scripts/parity_eval_torch.py")]
     assert len(files) > 30
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    assert {f"hoig_torch/metrics/{m}.py" for m in ("fid", "inception", "lpips", "ssim",
+                                                   "image_loader")} <= scanned
+    assert {"hoig_torch/parallel/mesh.py", "hoig_torch/train/flax_ckpt.py"} <= scanned
     for f in files:
         bad = _imported_roots(f) & _FORBIDDEN
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

@@ -2,12 +2,16 @@
 
     python train_torch.py --dataset_mode synthetic --batch_size 4 --bf16 ...
     python train_torch.py --device cpu ...   # the plain PyTorch path, no card
+    torchrun --nproc_per_node 8 train_torch.py --batch_size 4 ...   # 8 cards
 
 One process drives one card (CUDA unless --device cpu; without a card it
-raises). The loop is train.py's: time-based console prints, visual panels
-and latest-checkpoint saves; a validation pass at every display; a
-checkpoint at the end of every epoch; linear LR decay after
-nepochs_no_decay.
+raises). Under torchrun the processes form one data-parallel run
+(hoig_torch.parallel): NCCL on the cards, gloo on the CPU; --batch_size is
+per card, each process reads its own shard of every epoch, the step averages
+the gradients, and rank 0 alone prints, shows visuals and saves. The loop is
+train.py's: time-based console prints, visual panels and latest-checkpoint
+saves; a validation pass at every display; a checkpoint at the end of every
+epoch; linear LR decay after nepochs_no_decay.
 """
 
 from __future__ import annotations
@@ -34,14 +38,17 @@ class Train:
     def __init__(self, argv=None):
         from hoig_torch.data.loader import CustomDatasetDataLoader
         from hoig_torch.options.train_options import TrainOptions
-        from hoig_torch.parallel import process_is_primary
+        from hoig_torch.parallel import init_from_env, num_data_devices, process_is_primary, rank
         from hoig_torch.train.model_api import ModelsFactory
         from hoig_torch.utils.tb_visualizer import TBVisualizer
 
         self._opt = TrainOptions().parse(argv)
+        init_from_env(self._opt.device)
+        self._world = num_data_devices(self._opt)
         self._primary = process_is_primary()
-        data_loader_train = CustomDatasetDataLoader(self._opt, is_for_train=True)
-        data_loader_test = CustomDatasetDataLoader(self._opt, is_for_train=False)
+        shards = dict(use_ddp=self._world > 1, num_shards=self._world, shard_index=rank())
+        data_loader_train = CustomDatasetDataLoader(self._opt, is_for_train=True, **shards)
+        data_loader_test = CustomDatasetDataLoader(self._opt, is_for_train=False, **shards)
         self._dataset_train = data_loader_train.load_data()
         self._dataset_test = data_loader_test.load_data()
         self._dataset_train_size = len(data_loader_train)
@@ -67,12 +74,13 @@ class Train:
         return self._model
 
     def _train(self):
-        from hoig_torch.parallel import per_process_batch_size
+        from hoig_torch.parallel import coordination_barrier, per_process_batch_size
 
         opt = self._opt
-        self._proc_batch = per_process_batch_size(opt)
+        # the counters count the global batch, as one JAX host's run does
+        self._global_batch = per_process_batch_size(opt) * self._world
         self._total_steps = opt.load_epoch * self._dataset_train_size
-        self._iters_per_epoch = self._dataset_train_size / self._proc_batch
+        self._iters_per_epoch = self._dataset_train_size / self._global_batch
         self._last_display_time = None
         self._last_save_latest_time = None
         self._last_print_time = time.time()
@@ -89,6 +97,8 @@ class Train:
                 dt = time.time() - epoch_start
                 print("End of epoch %d / %d \t Time Taken: %d sec (%d min or %d h)"
                       % (i_epoch, max_epoch, dt, dt / 60, dt / 3600))
+            # no rank starts the next epoch's all-reduces while rank 0 writes
+            coordination_barrier(f"epoch_{i_epoch}_saved")
             if i_epoch > opt.nepochs_no_decay:
                 self._model.update_learning_rate()
 
@@ -107,12 +117,12 @@ class Train:
             self._model.optimize_parameters(keep_data_for_visuals=do_visuals and self._primary,
                                             trainable=trainable)
 
-            self._total_steps += self._proc_batch
+            self._total_steps += self._global_batch
             # the errors are device scalars: reading them waits for the
             # device, so only the print and display gates read them
             if self._primary and do_print:
                 errors = self._model.get_current_errors()
-                t = (time.time() - iter_start) / self._proc_batch
+                t = (time.time() - iter_start) / self._global_batch
                 self._tb_visualizer.print_current_train_errors(
                     i_epoch, i_batch, self._iters_per_epoch, errors, t, do_visuals)
                 self._last_print_time = time.time()
@@ -163,5 +173,10 @@ class Train:
 
 
 if __name__ == "__main__":
+    from hoig_torch.parallel import shutdown
+
     setup_seed()
-    Train()
+    try:
+        Train()
+    finally:
+        shutdown()
