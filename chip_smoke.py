@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path and its GAN training step on one
 NVIDIA GPU, with the shift attention engine and with the fused one, then the
-port's drivers, train_torch.py and eval_torch.py, its data-parallel step and
-the metric battery.
+port's drivers, train_torch.py and eval_torch.py, its data-parallel step, the
+metric battery and the modules off the main path.
 
     python3 chip_smoke.py [--out DIR]   # from the root of a checkout, one card
 
@@ -122,8 +122,44 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      random Inception and LPIPS weights, on the card and on the CPU, within
      the CPU tests' bounds, FID of gt/ against itself below 1e-3, and the
      decode, resize, Inception and LPIPS times per image;
- 11. print the drivers line, the phase 10 line, the kernels line, the card
-     line and, last, the result line.
+ 11. off the main path, each against the port's plain CPU path on the same
+     inputs: (a) renderer.render_fim_wim, render_silhouettes and render_depth
+     at 256 px and render_rgb at 512^2 (2x anti-aliasing) on the HOGAN
+     tables and cameras, batch 4, textures of size 3, each from launch
+     counters at 0 (one B2 call, bin_kernel + raster_kernel, and one B3
+     finish gather per map), timed; card vs CPU end to end on the first
+     samples (fim off on at most 1e-3 of the pixels, where the projection's
+     planes tie to an ulp; wim and depth within 1e-5 where fim agrees) and
+     strictly at the kernels' boundary, render_rgb's face corners on both
+     sides (fim equal, wim and depth within 1e-6, RGB within 1e-5), and
+     for every sample at 256^2 and 512^2 against the plain z-buffer and
+     gather run on the card's own tensors (fim equal, wim and depth within
+     1e-6), with the most faces one tile lists at 512^2 held to LIST_CAP;
+     (b) the
+     neural renderer's Renderer (look_at camera, 2x anti-aliasing): RGB
+     with get_fim, silhouettes and depth, launches, times, card vs CPU on
+     one sample; soft silhouettes forward and vertex gradient, time, peak
+     memory, card vs CPU within 1e-6 and 1e-5 of the gradient's max; (c)
+     the exact-gradient silhouettes, depth and RGB (backward_pixel_map,
+     backward_depth_map, the texture gradient by autograd of the sampling):
+     forward + backward time, peak memory and launches at 256 px (512^2
+     rasters), vertex and texture gradients card vs CPU on one sample at 64
+     px within 1e-5 of their max (RGB vertex gradient also rtol 1e-3; the
+     texture gradient's float atomics add in no fixed order); (d)
+     block_extractor and local_attn_reshape at 32^2 x 512, kernel 3,
+     forward and gradients card vs CPU; (e) compute_uv_image on the hand
+     atlas at uv_size 224: the reference's 2,000 Adam steps timed with the
+     final loss, and 50 steps on the card and the CPU within 1e-4; (f) the
+     resume from a JAX epoch: a full-width bf16 state after two steps (D
+     gated on the second) laid out as a JAX run's trees, loaded into a
+     fresh state by checkpoints.load_jax_state, weights, moments and Adam
+     steps bit-equal (Adam's step on the device torch keeps it on), again
+     after one Adam step of each on the same gradients, and one train step
+     of each, whose mean |G difference| is at most twice the largest of
+     three pairs of steps from the original state and two deep copies of
+     it (the bf16 step's atomics);
+ 12. print the drivers line, the phase 10 line, the phase 11 line, the
+     kernels line, the card line and, last, the result line.
 
 Details (result.json, profile.txt, build.txt: the compiler's report) go to
 --out, by default build/chip_smoke/.
@@ -539,12 +575,12 @@ def _bbox_pairs(bbox, s: int) -> float:
     return float((n[..., 0] * n[..., 1]).sum())
 
 
-def _listed_pairs(bbox, edge, s: int, tile: int) -> tuple[float, float]:
-    """(pixel, face) pairs of the rasterizer's tile lists: each face at the
-    64 pixels of every 8x8 tile its box meets (the tile's outer pixel
-    centres padded by one pixel pitch), and of those the pairs bin_kernel
-    keeps: none of the face's edge functions below its rounding margin at
-    all four corner pixel centres of the tile."""
+def _tile_lists(bbox, edge, s: int, tile: int):
+    """(B, F, T, T) masks of the rasterizer's tile lists: `boxed`, each face
+    at every 8x8 tile its box meets (the tile's outer pixel centres padded
+    by one pixel pitch), and `keep`, of those the pairs bin_kernel keeps:
+    none of the face's edge functions below its rounding margin at all
+    four corner pixel centres of the tile."""
     import torch
 
     t = torch.arange(-(-s // tile), device=bbox.device, dtype=torch.float32)
@@ -563,6 +599,13 @@ def _listed_pairs(bbox, edge, s: int, tile: int) -> tuple[float, float]:
             for cy in (c0, c1):
                 top = torch.maximum(top, (cx * a + cy[:, None] * b) + c)
         keep &= ~(top < -(16.0 * 5.9604645e-8) * ((a.abs() * big + b.abs() * big[:, None]) + c.abs()))
+    return boxed, keep
+
+
+def _listed_pairs(bbox, edge, s: int, tile: int) -> tuple[float, float]:
+    """(pixel, face) pairs of the tiles the boxes meet, and of those in the
+    tile lists (see _tile_lists): each face at the 64 pixels of a tile."""
+    boxed, keep = _tile_lists(bbox, edge, s, tile)
     n = tile * tile
     return float(boxed.sum()) * n, float(keep.sum()) * n
 
@@ -2234,6 +2277,575 @@ def metrics_phase(out_dir: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 11. off the main path: the generic renderer, the exact rasterizer
+# gradients, the block extractor, the UV fit and the resume from a JAX epoch
+# ---------------------------------------------------------------------------
+
+# B2 and B3 per hard map: one z-buffer call (bin_kernel + raster_kernel) and
+# one finish gather
+RENDER_LAUNCHES = {"rasterizer": 1, "table_gather": 1}
+# phase 11's sizes besides IMAGE and BATCH: the exact gradients' card-vs-CPU
+# image, the block extractor's layer (hw^2, channels), the UV fit's atlas
+# size, its steps and the steps it is held against the CPU for
+OFF_CMP_IMAGE = 64
+OFF_BLOCK_HW, OFF_BLOCK_CH = 32, 512
+UV_SIZE, UV_STEPS, UV_CMP_STEPS = 224, 2000, 50
+
+
+def _counted(fn, dev: str, expected: dict, label: str):
+    """fn() from launch counters at 0 -> (its result, the launches); on the
+    card the launches must be `expected`."""
+    import torch
+
+    from hoig_torch.ops import _cuda
+
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    out = fn()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    got = _cuda.launch_counts()
+    if dev == "cuda":
+        check(got == expected, f"{label}: launches {got} != {expected}")
+    return out, got
+
+
+def _host_ms(fn, dev: str, reps: int = 3) -> float:
+    """Median host ms of fn() ending in a synchronize (after one warm call)."""
+    import torch
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    fn()
+    sync()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def _peak_mib(fn, dev: str) -> float | None:
+    import torch
+
+    if dev != "cuda":
+        fn()
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def _tile_list_peak(bbox, edge, s: int, tile: int) -> int:
+    """The most faces bin_kernel lists for one tile of this scene."""
+    return int(_tile_lists(bbox, edge, s, tile)[1].sum(1).max())
+
+
+def _renderer_maps(env, dev: str, image: int, batch: int) -> dict:
+    """(a) renderer.render_fim_wim / render_silhouettes / render_depth at
+    `image` px and render_rgb at 2 x `image` (2x anti-aliasing), on the HOGAN
+    tables and cameras, batch `batch`, textures of size 3; then the B2 / B3
+    boundary held strictly: render_rgb's first sample against the plain CPU
+    path, and the whole batch at image and 2 x image against the plain
+    z-buffer and gather run on the card's own tensors."""
+    import torch
+
+    from hoig_torch.data.synthetic import synthetic_theta
+    from hoig_torch.geometry import renderer as rend
+    from hoig_torch.geometry.conditioning import ConditioningConfig, get_details
+    from hoig_torch.ops.rasterizer import _face_setup, finish, zbuffer_reference
+    from hoig_torch.ops.rasterizer_cuda import LIST_CAP, TILE, face_bbox, rasterize_fim_wim_auto
+    from hoig_torch.ops.table_gather import gather_rows_reference
+    from hoig_torch.ops.texture import lighting, sample_textures_trilinear
+
+    ccfg = ConditioningConfig(image_size=image)
+    theta = synthetic_theta(batch, env["obj_verts"], seed=11, image_size=image)
+    det = get_details(env["mano_params"],
+                      {k: torch.as_tensor(v, device=dev) for k, v in theta.items()}, ccfg)
+    f_max = env["tables"]["faces"].shape[1]
+    gen = torch.Generator().manual_seed(12)
+    tex = torch.rand((batch, f_max, 3, 3, 3, 3), generator=gen).to(dev)
+    on_dev = (env["tables"], det["cam"], det["verts"], det["obj_id"])
+    tables_cpu = env["tables_np"].as_torch("cpu")
+    on_cpu = (tables_cpu, det["cam"].cpu(), det["verts"].cpu(), det["obj_id"].cpu())
+    calls = {
+        "render_fim_wim": lambda a, t: rend.render_fim_wim(*a, image_size=image),
+        "render_silhouettes": lambda a, t: rend.render_silhouettes(*a, image_size=image),
+        "render_depth": lambda a, t: rend.render_depth(*a, image_size=image),
+        "render_rgb": lambda a, t: rend.render_rgb(a[0], a[1], a[2], t, a[3], image_size=image),
+    }
+    # the plain CPU path on the first samples (its z-buffer takes about 10 s
+    # per 512^2 image on eight cores): two at image px, one at 2 x image
+    first = lambda a, n: (a[0], *(x[:n] for x in a[1:]))
+    out, got, res = {}, {}, {}
+    for name, fn in calls.items():
+        n = 1 if name == "render_rgb" else 2
+        got[name], launches = _counted(lambda: fn(on_dev, tex), dev, RENDER_LAUNCHES, name)
+        res[name] = fn(first(on_cpu, n), tex[:n].cpu())
+        got[name] = tuple(x[:n] for x in got[name]) if isinstance(got[name], tuple) \
+            else got[name][:n]
+        out[name] = dict(ms=_host_ms(lambda: fn(on_dev, tex), dev), launches=launches)
+    # end to end: the camera projection's matrix products round on the card
+    # as cuBLAS does (f2pts differ by an ulp), and a barycentric weight
+    # moves by that ulp over the face's area: held as phase 4 holds the
+    # conditioning, at most 1e-3 of the elements off by more than 1e-4
+    _, fim_g, wim_g = got["render_fim_wim"]
+    f2_c, fim_c, wim_c = res["render_fim_wim"]
+    fim_g = fim_g.cpu()
+    share = float((fim_g != fim_c).float().mean())
+    e_f2 = max_err(got["render_fim_wim"][0].cpu(), f2_c)
+    offs = {"fim": share, "silhouettes": float(
+        (got["render_silhouettes"].cpu() != res["render_silhouettes"]).float().mean())}
+    errs = {}
+    for key, a, b in (("wim", wim_g.cpu(), wim_c), ("depth", got["render_depth"].cpu(),
+                                                     res["render_depth"]),
+                      ("rgb", got["render_rgb"].cpu(), res["render_rgb"])):
+        offs[key] = float(((a - b).abs() > 1e-4).float().mean())
+        errs[key] = max_err(a, b)
+    check(all(v <= 1e-3 for v in offs.values()) and e_f2 <= 1e-5,
+          f"renderer maps card vs CPU: shares off {offs}, f2pts {e_f2}")
+    hits = int((fim_g >= 0).sum())
+    check(hits > 0.01 * fim_g.numel(), f"the hands cover {hits} pixels only")
+
+    # strictly at the kernels' boundary: render_rgb's face corners at 2 x
+    # image, the same inputs on both sides (B2 + B3 on the card, the plain
+    # z-buffer and gather on the CPU)
+    s2 = 2 * image
+    _, fv, faces, valid = rend._project(*on_dev, image, "matrix")
+    fim2, wim2, d2 = rasterize_fim_wim_auto(fv, valid, image_size=s2, near=0.1, far=25.0,
+                                           depth=True)
+    fim2c, wim2c, d2c = rasterize_fim_wim_auto(fv[:1].cpu(), valid[:1].cpu(), image_size=s2,
+                                              near=0.1, far=25.0, depth=True)
+    check(torch.equal(fim2[:1].cpu(), fim2c),
+          "render_rgb's fim differs card vs CPU on the same faces")
+    e_wim2, e_d2 = max_err(wim2[:1].cpu(), wim2c), max_err(d2[:1].cpu(), d2c)
+    lit = lighting(rend.vertices_to_faces(det["verts"], faces), tex)
+    rgb2 = sample_textures_trilinear(lit[:1], fim2[:1], wim2[:1])
+    rgb2c = sample_textures_trilinear(lit[:1].cpu(), fim2c, wim2c)
+    e_rgb2 = max_err(rgb2.cpu(), rgb2c)
+    check(e_wim2 <= 1e-6 and e_d2 <= 1e-6 and e_rgb2 <= 1e-5,
+          f"render_rgb at the kernels' boundary: wim {e_wim2}, depth {e_d2}, rgb {e_rgb2}")
+    # the whole batch at both sizes: B2 + B3 against the plain z-buffer and
+    # gather on the same card tensors (no kernel on that side)
+    plain = {}
+    for s in (image, s2):
+        kern = (fim2, wim2, d2) if s == s2 else rasterize_fim_wim_auto(
+            fv, valid, image_size=s, near=0.1, far=25.0, depth=True)
+        setup = _face_setup(fv, valid, s)
+        ref = finish(zbuffer_reference(setup, s, 0.1, 25.0), setup["finv"], None, s,
+                     gather=gather_rows_reference, z=setup["z"], far=25.0)
+        plain[s] = dict(fim_equal=[bool(torch.equal(a, b)) for a, b in zip(kern[0], ref[0])],
+                        wim_err=max_err(kern[1], ref[1]), depth_err=max_err(kern[2], ref[2]))
+        check(all(plain[s]["fim_equal"]) and plain[s]["wim_err"] <= 1e-6
+              and plain[s]["depth_err"] <= 1e-6,
+              f"B2 + B3 vs the plain z-buffer and gather on the card at {s}^2: {plain[s]}")
+    peak = _tile_list_peak(face_bbox(fv, setup["keep"]), setup["edge"], s2, TILE)
+    check(peak <= LIST_CAP, f"a tile lists {peak} faces at {s2}^2, over LIST_CAP {LIST_CAP}")
+    log(f"  (a) renderer maps, {batch} x {image}^2 (render_rgb at {s2}^2), faces "
+        f"{tuple(fv.shape[:2])}, hit pixels {hits}: launches per call "
+        + ", ".join(f"{k} {v['launches']}" for k, v in out.items())
+        + "; ms per call " + ", ".join(f"{k} {v['ms']:.2f}" for k, v in out.items()))
+    log(f"      card vs CPU end to end (2 samples, render_rgb 1): f2pts {e_f2:.3g}, shares "
+        "off (fim, silhouettes: any; the rest > 1e-4) " + ", ".join(
+            f"{k} {v:.3g}" for k, v in offs.items()) + ", max errors " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()) + f"; on the same faces at {s2}^2 (1 "
+        f"sample): fim equal, wim {e_wim2:.3g}, depth {e_d2:.3g}, rgb {e_rgb2:.3g}; "
+        f"most faces in one tile's list {peak} (LIST_CAP {LIST_CAP})")
+    log(f"      B2 + B3 vs the plain z-buffer and gather on the card's tensors, all {batch} "
+        "samples: " + "; ".join(
+            f"{s}^2 fim equal {sum(p['fim_equal'])}/{len(p['fim_equal'])}, wim "
+            f"{p['wim_err']:.3g}, depth {p['depth_err']:.3g}" for s, p in plain.items())
+        + " (bounds: fim equal, 1e-6)")
+    return dict(calls=out, f2pts_err=e_f2, share_off=offs, max_err=errs,
+                boundary=dict(wim_err=e_wim2, depth_err=e_d2, rgb_err=e_rgb2),
+                plain_on_card={str(s): p for s, p in plain.items()},
+                tile_list_peak=peak, faces=list(fv.shape[:2]), hits=hits)
+
+
+def _renderer_mesh(env, batch: int, dev: str):
+    """The hand and the first object as one mesh around the origin (B, V, 3),
+    its valid faces (F, 3), and textures of size 3 (B, F, 3, 3, 3, 3)."""
+    import torch
+
+    from hoig_torch.data.synthetic import synthetic_theta
+    from hoig_torch.geometry.conditioning import ConditioningConfig, get_details
+
+    theta = synthetic_theta(batch, env["obj_verts"][:1], seed=13)  # every sample holds object 0
+    det = get_details(env["mano_params"],
+                      {k: torch.as_tensor(v, device=dev) for k, v in theta.items()},
+                      ConditioningConfig())
+    v = det["verts"] - det["verts"].mean(1, keepdim=True)
+    v = v / v.abs().amax(dim=(1, 2), keepdim=True)
+    nf = int(env["tables_np"].num_faces[0])
+    faces = env["tables"]["faces"][0, :nf]
+    gen = torch.Generator().manual_seed(14)
+    tex = torch.rand((batch, nf, 3, 3, 3, 3), generator=gen).to(dev)
+    return v, faces, tex
+
+
+def _renderer_objects(env, dev: str, image: int, batch: int) -> dict:
+    """(b) neural_renderer_api.Renderer (look_at camera, 2x anti-aliasing):
+    RGB at 2 x image with get_fim, silhouettes at 2 x image, depth at image,
+    against the CPU; soft silhouettes forward and vertex gradient with the
+    peak memory."""
+    import torch
+
+    from hoig_torch.geometry.neural_renderer_api import Renderer
+
+    v, faces, tex = _renderer_mesh(env, batch, dev)
+    r = Renderer(image_size=image)
+    two = {"rasterizer": 2, "table_gather": 2}  # the 2x map and the fim at image
+    calls = {
+        "render": (lambda a: r.render(*a, get_fim=True), two),
+        "render_silhouettes": (lambda a: r.render_silhouettes(*a[:2]), RENDER_LAUNCHES),
+        "render_depth": (lambda a: r.render_depth(*a[:2]), RENDER_LAUNCHES),
+    }
+    out = {}
+    args_d, args_c = (v, faces, tex), (v[:1].cpu(), faces.cpu(), tex[:1].cpu())
+    for name, (fn, want) in calls.items():
+        got, launches = _counted(lambda: fn(args_d), dev, want, name)
+        ref = fn(args_c)  # the first sample on the CPU
+        ms = _host_ms(lambda: fn(args_d), dev)
+        if name == "render":
+            (rgb, fim), (rgb_c, fim_c) = got, ref
+            share = float((fim[:1].cpu() != fim_c).float().mean())
+            err = float(((rgb[:1].cpu() - rgb_c).abs() > 1e-5).float().mean())
+        else:
+            share = float(((got[:1].cpu() - ref).abs() > 1e-6).float().mean())
+            err = max_err(got[:1].cpu(), ref)
+        check(share <= 1e-3 and (name != "render" or err <= 1e-3),
+              f"Renderer.{name} card vs CPU: {share:.3g} of the pixels differ ({err})")
+        out[name] = dict(ms=ms, launches=launches, share_off=share, err=err)
+
+    # soft coverage at image px: forward and the vertex gradient of a fixed
+    # weighting; card vs CPU on the first sample
+    gen = torch.Generator().manual_seed(15)
+    w = torch.randn((batch, image, image), generator=gen).to(dev)
+
+    def soft(vv, ww):
+        x = vv.clone().requires_grad_()
+        sil = r.render_silhouettes(x, faces.to(vv.device), soft=True)
+        (sil * ww).sum().backward()
+        return sil.detach(), x.grad
+
+    ms = _host_ms(lambda: soft(v, w), dev)
+    mib = _peak_mib(lambda: soft(v, w), dev)
+    sil_g, grad_g = soft(v[:1], w[:1])
+    sil_c, grad_c = soft(v[:1].cpu(), w[:1].cpu())
+    e_sil = max_err(sil_g.cpu(), sil_c)
+    top = float(grad_c.abs().max())
+    e_grad = max_err(grad_g.cpu(), grad_c)
+    check(e_sil <= 1e-6 and e_grad <= 1e-5 * top,
+          f"soft silhouettes card vs CPU: values {e_sil}, vertex gradient {e_grad} (max {top})")
+    out["soft_silhouette"] = dict(ms=ms, peak_mib=mib, err=e_sil, grad_err=e_grad,
+                                  grad_max=top)
+    log(f"  (b) Renderer (look_at, 2x anti-aliasing), {batch} x {image}^2, faces "
+        f"{tuple(faces.shape)}: " + "; ".join(
+            f"{k} {o['ms']:.2f} ms, launches {o.get('launches')}" for k, o in out.items()
+            if "launches" in o)
+        + "; card vs CPU (1 sample): share of values off " + ", ".join(
+            f"{k} {o['share_off']:.3g}" for k, o in out.items() if "share_off" in o))
+    log(f"      soft silhouettes forward + vertex gradient {ms:.2f} ms, peak {mib} MiB above the "
+        f"live tensors; card vs CPU (one sample): values {e_sil:.3g}, gradient {e_grad:.3g} "
+        f"(bound 1e-5 of its max {top:.3g})")
+    return out
+
+
+def _exact_vjps(env, dev: str, image: int, batch: int, cmp_image: int) -> dict:
+    """(c) the exact-gradient Functions through Renderer(exact_grad=True):
+    forward + backward time, launches and peak memory at image (2x
+    anti-aliasing for the silhouette and RGB), then the vertex and texture
+    gradients card vs CPU on one sample at cmp_image."""
+    import torch
+
+    from hoig_torch.geometry.neural_renderer_api import Renderer
+
+    v, faces, tex = _renderer_mesh(env, batch, dev)
+    gen = torch.Generator().manual_seed(16)
+
+    def run(r, vv, tt, which, w):
+        x = vv.clone().requires_grad_()
+        t = tt.clone().requires_grad_()
+        if which == "silhouettes":
+            out = r.render_silhouettes(x, faces.to(vv.device), exact_grad=True)
+        elif which == "depth":
+            out = r.render_depth(x, faces.to(vv.device), exact_grad=True)
+        else:
+            out = r.render(x, faces.to(vv.device), t, exact_grad=True)
+        (out * w).sum().backward()
+        return out.detach(), x.grad, t.grad
+
+    res = {}
+    for which in ("silhouettes", "depth", "rgb"):
+        r = Renderer(image_size=image)
+        shape = (batch, 3, image, image) if which == "rgb" else (batch, image, image)
+        w = torch.randn(shape, generator=gen).to(dev)
+        (_, gv, gt), launches = _counted(lambda: run(r, v, tex, which, w), dev,
+                                         RENDER_LAUNCHES, f"exact {which}")
+        check(bool(torch.isfinite(gv).all()) and float(gv.abs().max()) > 0,
+              f"exact {which}: vertex gradient non-finite or zero")
+        ms = _host_ms(lambda: run(r, v, tex, which, w), dev, reps=2)
+        mib = _peak_mib(lambda: run(r, v, tex, which, w), dev)
+        rc = Renderer(image_size=cmp_image)
+        shape = (1, 3, cmp_image, cmp_image) if which == "rgb" else (1, cmp_image, cmp_image)
+        wc = torch.randn(shape, generator=gen)
+        out_g, gv_g, gt_g = run(rc, v[:1], tex[:1], which, wc.to(dev))
+        out_c, gv_c, gt_c = run(rc, v[:1].cpu(), tex[:1].cpu(), which, wc)
+        e_out = max_err(out_g.cpu(), out_c)
+        top_v = float(gv_c.abs().max())
+        err_v = (gv_g.cpu() - gv_c).abs()
+        # the walk divides colour differences by distances down to eps: where
+        # a map differs by rounding, rtol 1e-3 of the entry (the CPU tests'
+        # bound against JAX)
+        ok_v = bool((err_v <= 1e-5 * top_v + (1e-3 if which == "rgb" else 0.0) * gv_c.abs()).all())
+        row = dict(ms=ms, peak_mib=mib, launches=launches, fwd_err=e_out,
+                   vertex_grad_err=float(err_v.max()), vertex_grad_max=top_v)
+        check(ok_v and e_out <= 1e-5, f"exact {which} card vs CPU: output {e_out}, vertex "
+              f"gradient {float(err_v.max())} (max {top_v})")
+        if which == "rgb":
+            # float atomics on the card add each texel's terms in no fixed order
+            top_t = float(gt_c.abs().max())
+            e_t = max_err(gt_g.cpu(), gt_c)
+            check(e_t <= 1e-5 * top_t, f"exact rgb texture gradient card vs CPU {e_t} (max {top_t})")
+            row.update(texture_grad_err=e_t, texture_grad_max=top_t)
+        res[which] = row
+    log(f"  (c) exact-gradient Renderer, {batch} x {image}^2 (silhouettes and rgb rasterized at "
+        f"{2 * image}^2), forward + backward: " + "; ".join(
+            f"{k} {o['ms']:.1f} ms, peak {o['peak_mib']} MiB, launches {o['launches']}"
+            for k, o in res.items()))
+    log(f"      card vs CPU at {cmp_image}^2, one sample: " + "; ".join(
+        f"{k} output {o['fwd_err']:.3g}, vertex gradient {o['vertex_grad_err']:.3g} of max "
+        f"{o['vertex_grad_max']:.3g}" + (f", texture gradient {o['texture_grad_err']:.3g} of max "
+                                         f"{o['texture_grad_max']:.3g}" if k == "rgb" else "")
+        for k, o in res.items()) + " (bounds 1e-5 of the max; rgb vertex also rtol 1e-3)")
+    return res
+
+
+def _block_extractor(dev: str, batch: int, hw: int, ch: int) -> dict:
+    """(d) block_extractor and local_attn_reshape at the (hw^2, ch) layer
+    shape, kernel 3: forward and gradients card vs CPU, and times."""
+    import torch
+
+    from hoig_torch.ops.block_extractor import block_extractor, local_attn_reshape
+
+    gen = torch.Generator().manual_seed(17)
+    k = 3
+    src = torch.randn((batch, ch, hw, hw), generator=gen)
+    flow = torch.randn((batch, 2, hw, hw), generator=gen) * 2.0
+    g = torch.randn((batch, ch, hw * k, hw * k), generator=gen)
+    attn = torch.randn((batch, k * k, hw, hw), generator=gen)
+
+    def run(d):
+        s_ = src.to(d).requires_grad_()
+        f_ = flow.to(d).requires_grad_()
+        out = block_extractor(s_, f_, k)
+        ((out * g.to(d)).sum() + local_attn_reshape(attn.to(d), k).sum()).backward()
+        return out.detach(), s_.grad, f_.grad
+
+    ms = _host_ms(lambda: run(dev), dev)
+    got, ref = run(dev), run("cpu")
+    errs = [max_err(a.cpu(), b) for a, b in zip(got, ref)]
+    tops = [float(b.abs().max()) for b in ref]
+    # the source gradient is the gathers' scatter-add (float atomics on the card)
+    check(errs[0] <= 1e-6 and errs[1] <= 1e-5 * tops[1] and errs[2] <= 1e-5 * tops[2],
+          f"block_extractor card vs CPU: out {errs[0]}, d source {errs[1]}, d flow {errs[2]}")
+    check(torch.equal(local_attn_reshape(attn.to(dev), k).cpu(), local_attn_reshape(attn, k)),
+          "local_attn_reshape differs card vs CPU")
+    log(f"  (d) block_extractor ({batch}, {ch}, {hw}, {hw}), kernel 3: forward + backward "
+        f"{ms:.2f} ms; card vs CPU out {errs[0]:.3g}, d source {errs[1]:.3g} (max {tops[1]:.3g}), "
+        f"d flow {errs[2]:.3g} (max {tops[2]:.3g}); local_attn_reshape equal")
+    return dict(ms=ms, out_err=errs[0], src_grad_err=errs[1], flow_grad_err=errs[2])
+
+
+def _uv_fit(env, dev: str, out_dir: Path, uv_size: int, steps: int, cmp_steps: int) -> dict:
+    """(e) compute_uv_image on the hand atlas (the synthetic hand's UV OBJ,
+    samplers of size 3): the reference's full fit on the card, timed, with
+    its final loss; cmp_steps steps on the card and on the CPU held together."""
+    import numpy as np
+    import torch
+
+    from hoig_torch.data.synthetic import write_hand_uv_obj
+    from hoig_torch.geometry.uv_image import compute_uv_image, create_uvsampler
+    from hoig_torch.ops.grid_sample import grid_sample
+
+    path = out_dir / "hand_uv.obj"
+    write_hand_uv_obj(str(path), env["mano"])
+    uv = create_uvsampler(str(path), 3).reshape(-1, 3, 3, 2)
+    path.unlink()
+    tex = (np.random.RandomState(18).rand(uv.shape[0], 3, 3, 3) * 1.6 - 0.8).astype(np.float32)
+
+    def loss(img):
+        s = grid_sample(torch.as_tensor(img)[None], torch.as_tensor(uv.reshape(1, -1, 9, 2)))
+        return float(((s.reshape(3, -1, 3, 3).permute(1, 2, 3, 0) - torch.as_tensor(tex)) ** 2)
+                     .mean())
+
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = compute_uv_image(uv, tex, uv_size=uv_size, steps=steps, device=dev)
+    full_s = time.perf_counter() - t0
+    short_g = compute_uv_image(uv, tex, uv_size=uv_size, steps=cmp_steps, device=dev)
+    t0 = time.perf_counter()
+    short_c = compute_uv_image(uv, tex, uv_size=uv_size, steps=cmp_steps, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(short_g - short_c).max())
+    l0, l_short, l_full = loss(np.full_like(full, np.tanh(-1.0))), loss(short_c), loss(full)
+    # Adam on the same gradients up to the card's scatter-add order
+    check(err <= 1e-4, f"compute_uv_image card vs CPU after {cmp_steps} steps: {err}")
+    check(np.isfinite(full).all() and l_full < l_short < l0,
+          f"compute_uv_image loss {l0} -> {l_short} ({cmp_steps}) -> {l_full} ({steps})")
+    log(f"  (e) compute_uv_image, hand atlas ({uv.shape[0]} faces), uv_size {uv_size}: {steps} "
+        f"steps {full_s:.2f} s ({full_s / steps * 1e3:.3f} ms per step), loss {l0:.4g} -> "
+        f"{l_short:.4g} ({cmp_steps}) -> {l_full:.4g} ({steps}); card vs CPU after {cmp_steps} "
+        f"steps {err:.3g} (bound 1e-4; CPU {cpu_s:.2f} s)")
+    return dict(steps=steps, s=full_s, ms_per_step=full_s / steps * 1e3, loss0=l0,
+                loss_short=l_short, loss=l_full, cmp_err=err, cmp_steps=cmp_steps)
+
+
+def _jax_resume(env, ccfg, batch, tcfg, dev: str) -> dict:
+    """(f) the resume from a JAX epoch: a training state after two steps (D
+    gated on the second, so D's Adam count is 1 and G's 2), laid out in
+    memory as a JAX run's trees (flax_tree_from_torch, optax_from_adam) and
+    loaded into a fresh state by checkpoints.load_jax_state: weights, Adam
+    moments and steps bit-equal, Adam's step where torch keeps it; one Adam
+    step of each on the same gradients, bit-equal; one train step of each,
+    against a control: two deep copies of the original state, stepped too.
+    The bf16 step's scatter-add atomics make two steps from one state
+    differ (ROADMAP C); the resumed pair's mean |G difference| may be at most
+    twice the largest of the three control pairs'. Their largest element
+    differences are printed only: in two runs on an H100 they moved
+    threefold between pairs of one kind (0.49-1.48 lr), too widely to bound."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from hoig_torch.models.convert import (discriminator_mapping, flax_tree_from_torch,
+                                           generator_mapping)
+    from hoig_torch.models.vgg import init_vgg
+    from hoig_torch.train import checkpoints as ckpt
+    from hoig_torch.train.optax_state import optax_from_adam
+    from hoig_torch.train.trainer import build_networks, init_state, make_train_step
+
+    state = init_state(*build_networks(tcfg, device=dev, seed=0), tcfg)
+    vgg = init_vgg(seed=2, compute_dtype=tcfg.compute_dtype, device=dev)
+    step = make_train_step(vgg, env["tables"], env["mano_params"], ccfg, tcfg)
+    state, _ = step(state, batch, True)
+    state, _ = step(state, batch, False)
+    gmap, dmap = generator_mapping(tcfg.gen_name, tcfg.repeat_num), discriminator_mapping(4)
+    t0 = time.perf_counter()
+    trees = ({"params": flax_tree_from_torch(state.g.state_dict(), gmap)},
+             {"params": flax_tree_from_torch(state.d.state_dict(), dmap)},
+             {"opt": optax_from_adam(state.opt_g, state.g, gmap), "lr": state.lr_g,
+              "step": np.int32(state.step)},
+             {"opt": optax_from_adam(state.opt_d, state.d, dmap), "lr": state.lr_d})
+    export_s = time.perf_counter() - t0
+    counts = int(trees[2]["opt"]["0"]["count"]), int(trees[3]["opt"]["0"]["count"])
+    check(counts == (2, 1), f"optax counts (G, D) {counts} != (2, 1)")
+    fresh = init_state(*build_networks(tcfg, device=dev, seed=5), tcfg)
+    t0 = time.perf_counter()
+    ckpt.load_jax_state(fresh, tcfg, *trees)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    def pairs():
+        return ((a, b, oa, ob) for net_a, net_b, oa, ob in (
+            (state.g, fresh.g, state.opt_g, fresh.opt_g), (state.d, fresh.d, state.opt_d,
+                                                           fresh.opt_d))
+            for a, b in zip(net_a.parameters(), net_b.parameters()))
+
+    def equal_states(label):
+        for a, b, oa, ob in pairs():
+            check(torch.equal(a, b), f"{label}: weights differ")
+            sa, sb = oa.state[a], ob.state[b]
+            check(torch.equal(sa["exp_avg"], sb["exp_avg"])
+                  and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"]), f"{label}: moments differ")
+            check(float(sa["step"]) == float(sb["step"]), f"{label}: Adam steps differ")
+            check(sb["step"].device == sa["step"].device, f"{label}: Adam's step on "
+                  f"{sb['step'].device}, where torch keeps it: {sa['step'].device}")
+
+    equal_states("after the resume")
+    check(fresh.step == state.step == 2 and fresh.lr_g == state.lr_g
+          and fresh.lr_d == state.lr_d, "step counter or learning rates differ")
+    step_dev = str(fresh.opt_g.state[next(fresh.g.parameters())]["step"].device)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for a, b, _, _ in pairs():
+        a.grad = torch.randn(a.shape, generator=gen, device=dev) * 1e-3
+        b.grad = a.grad.clone()
+    for opt in (state.opt_g, state.opt_d, fresh.opt_g, fresh.opt_d):
+        opt.step()
+    equal_states("after one Adam step on the same gradients")
+    ctrls = [copy.deepcopy(state) for _ in range(2)]
+    state, ma = step(state, batch, True)
+    fresh, mb = step(fresh, batch, True)
+    ctrls = [step(c, batch, True)[0] for c in ctrls]
+    d_loss = abs(float(ma["loss_G"]) - float(mb["loss_G"])) / abs(float(ma["loss_G"]))
+
+    def g_diff_lr(a, b):
+        # the largest and the mean |G weight difference| of two states, in
+        # units of G's lr
+        with torch.no_grad():
+            d = [(x - y).abs() for x, y in zip(a.g.parameters(), b.g.parameters())]
+            n = sum(t.numel() for t in d)
+            return (max(float(t.max()) for t in d) / state.lr_g,
+                    sum(float(t.double().sum()) for t in d) / n / state.lr_g)
+
+    moved = g_diff_lr(state, fresh)
+    controls = [g_diff_lr(a, b) for a, b in ((state, ctrls[0]), (state, ctrls[1]),
+                                             (ctrls[0], ctrls[1]))]
+    control = max(c[1] for c in controls)
+    same = sum(torch.equal(a, b) for a, b, _, _ in pairs())
+    n = sum(1 for _ in pairs())
+    check(all(bool(torch.isfinite(v)) for v in mb.values()), f"non-finite metrics {mb}")
+    check(d_loss <= 1e-3, f"the train steps after the resume: loss_G differs by {d_loss:.3g}")
+    check(moved[1] <= 2.0 * control, f"the train steps after the resume: mean |G difference| "
+          f"{moved[1]:.3g} lr, over twice the {control:.3g} lr of steps from one original state")
+    log(f"  (f) resume from a JAX run's trees: G Adam count 2, D 1 (D gated on step 2); export "
+        f"{export_s:.2f} s, load_jax_state {load_s:.2f} s; weights, moments and Adam steps "
+        f"bit-equal after the resume and after one Adam step on the same gradients; Adam's step "
+        f"on {step_dev} as in the original state; one train step of each: loss_G relative "
+        f"difference {d_loss:.3g}, {same} of {n} weight tensors bit-equal; G differs by "
+        f"{moved[1]:.3g} lr on average and {moved[0]:.3g} lr at most, three pairs of steps from "
+        "one original state by " + ", ".join(f"{c[1]:.3g} / {c[0]:.3g}" for c in controls)
+        + " lr (the bf16 step's atomics, ROADMAP C; bound: twice the largest control mean)")
+    out = dict(counts=list(counts), export_s=export_s, load_s=load_s, step_device=step_dev,
+               loss_rel_diff=d_loss, equal_tensors=same, tensors=n, max_g_diff_lr=moved[0],
+               mean_g_diff_lr=moved[1], control_g_diff_lr=[list(c) for c in controls])
+    del state, fresh, ctrls, step, vgg
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def offpath_phase(env, out_dir: Path, dev: str = "cuda") -> dict:
+    """Phase 11 (see the module docstring), at IMAGE px, batch BATCH and the
+    OFF_* / UV_* sizes; dev "cpu" rehearses it (launch counts unchecked)."""
+    import torch
+
+    from hoig_torch.data.synthetic import synthetic_batch
+    from hoig_torch.geometry.conditioning import ConditioningConfig
+    from hoig_torch.train.model_api import batch_as_torch
+
+    out = dict(renderer=_renderer_maps(env, dev, IMAGE, BATCH),
+               renderer_objects=_renderer_objects(env, dev, IMAGE, BATCH),
+               exact_grad=_exact_vjps(env, dev, IMAGE, BATCH, OFF_CMP_IMAGE),
+               block_extractor=_block_extractor(dev, BATCH, OFF_BLOCK_HW, OFF_BLOCK_CH),
+               uv_image=_uv_fit(env, dev, out_dir, UV_SIZE, UV_STEPS, UV_CMP_STEPS))
+    ccfg = ConditioningConfig(image_size=IMAGE)
+    bt = batch_as_torch(synthetic_batch(BATCH, env["obj_verts"], image_size=IMAGE, seed=9), dev)
+    out["jax_resume"] = _jax_resume(env, ccfg, bt, train_config("shift"), dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
@@ -2393,7 +3005,13 @@ def main() -> int:
     ddp["torchrun"] = torchrun_phase(out_dir, drivers)
     metrics = metrics_phase(out_dir)
 
-    # 11. report
+    # 11. off the main path
+    log(f"[11] off the main path: the generic renderer ({IMAGE} px, batch {BATCH}, 2x "
+        f"anti-aliasing), the exact rasterizer gradients, the block extractor, the UV fit, the "
+        f"resume from a JAX run's trees; card {card}")
+    offpath = offpath_phase(env, out_dir)
+
+    # 12. report
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -2407,13 +3025,19 @@ def main() -> int:
                    library_ms=r["library_ms"])
         row.update({k: r[k] for k in ("library", "yardstick_ms", "yardstick", "f32_ms",
                                       "f32_bound_ms") if k in r})
+        if name in RENDER_LAUNCHES:
+            # launches of one renderer.render_rgb call (2x anti-aliasing) in phase 11
+            row["launches_renderer"] = offpath["renderer"]["calls"]["render_rgb"]["launches"].get(
+                name, 0)
         kernels.append(row)
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                   kernels=results, cpu_compare=cpu_cmp, serving=serve, training=train,
-                  fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics)
+                  fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics,
+                  offpath=offpath)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"drivers": drivers}, default=str))
     log(json.dumps({"ddp": ddp, "metrics": metrics}, default=str))
+    log(json.dumps({"offpath": offpath, "card": card}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -171,3 +171,17 @@ def hand_recovery_flow(tables: dict, mano_params: dict, src_img: torch.Tensor,
         "src_crop_mask_hand": src_mask_hand,
         "tsf_crop_mask_hand": ref_mask_hand,
     }
+
+
+def cal_hand_bbox(kps: torch.Tensor, image_size: int, factor: float = 1.2) -> torch.Tensor:
+    """Keypoints (B, K, 2) in [-1, 1] -> (B, 4) int32 box [x0, x1, y0, y1] in
+    pixels, `factor` times the keypoints' extent, clamped to the image
+    (trainer.py:148-185)."""
+    kps = (kps + 1.0) / 2.0
+    mn, mx = kps.amin(dim=1), kps.amax(dim=1)
+    mid = (mn + mx) / 2.0
+    half = (mx - mn) * factor / 2.0
+    lo = (mid - half).clamp_min(0.0)
+    hi = (mid + half).clamp_max(1.0)
+    bbox = torch.stack([lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]], dim=1) * image_size
+    return bbox.to(torch.int32)

@@ -1,7 +1,7 @@
 """OBJ loading and face -> condition mapping tables (numpy, build time only).
 
-A copy of what the port needs from hoig_tpu/geometry/mesh.py (reference
-utils/mesh.py: load_obj, get_f2vts, create_mapping).
+A copy of hoig_tpu/geometry/mesh.py (reference utils/mesh.py: load_obj,
+get_f2vts, create_mapping, get_map_fn_dim; save_obj from utils/nmr.py).
 """
 
 from __future__ import annotations
@@ -48,6 +48,15 @@ def load_obj(path: str) -> dict:
     }
 
 
+def save_obj(verts: np.ndarray, faces: np.ndarray, path: str) -> None:
+    """Write a minimal OBJ: `v` lines, then 1-based `f` lines."""
+    with open(path, "w") as fp:
+        for v in verts:
+            fp.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        for f in faces:
+            fp.write(f"f {f[0] + 1} {f[1] + 1} {f[2] + 1}\n")
+
+
 def compute_barycenter(f2vts: np.ndarray) -> np.ndarray:
     """(F, 3, C) corner attributes -> (F, C): v2 + 0.5 (v0 - v2) + 0.5 (v1 - v2)."""
     v2 = f2vts[:, 2]
@@ -85,3 +94,12 @@ def create_mapping(map_name: str, obj_path: str, contain_bg: bool = True) -> np.
     if contain_bg:
         map_fn = np.concatenate([map_fn.astype(np.float32), bg], axis=0)
     return map_fn.astype(np.float32)
+
+
+def get_map_fn_dim(map_name: str) -> int:
+    """Condition channels per map type (utils/mesh.py:410-437): the
+    conditioning widths of the generator and discriminator."""
+    dims = {"seg": 1, "uv": 2, "uv_seg": 3, "par": 11, "ids": 1, "binary": 15}
+    if map_name not in dims:
+        raise ValueError(f"map name error {map_name}")
+    return dims[map_name]

@@ -1,6 +1,7 @@
-"""Camera projection for the conditioning stage (port of
-hoig_tpu/geometry/projection.py; reference utils/nmr.py:109-140 and the
-neural renderer's look_at / vertices_to_faces)."""
+"""Camera projection (port of hoig_tpu/geometry/projection.py; reference
+utils/nmr.py:109-140, the neural renderer's look_at / vertices_to_faces and
+hmr.py's proj_func). The products are full f32 (TF32 is off by default for
+torch's CUDA matrix products), as the JAX package asks for HIGHEST."""
 
 from __future__ import annotations
 
@@ -47,6 +48,25 @@ def orthographic_proj_withz_fxfy(pts3d: torch.Tensor, cam: torch.Tensor, offset_
     return torch.cat([xy_ndc, z + offset_z], dim=2)
 
 
+def look_at(vertices: torch.Tensor, eye, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)) -> torch.Tensor:
+    """The neural renderer's general look_at (look_at.py:6-62): (B, N, 3)
+    world vertices -> view space, the eye at the origin looking along +z."""
+    kw = dict(dtype=vertices.dtype, device=vertices.device)
+    eye, at, up = torch.tensor(eye, **kw), torch.tensor(at, **kw), torch.tensor(up, **kw)
+
+    def norm(v):
+        return v / torch.linalg.norm(v).clamp_min(1e-5)
+
+    z_axis = norm(at - eye)
+    x_axis = norm(torch.linalg.cross(up, z_axis))
+    y_axis = norm(torch.linalg.cross(z_axis, x_axis))
+    r = torch.stack([x_axis, y_axis, z_axis], dim=0)  # (3, 3)
+    # the three products summed element-wise, not by a matrix product, so
+    # the CPU and the card round them alike
+    d = vertices - eye
+    return d[..., 0:1] * r[:, 0] + d[..., 1:2] * r[:, 1] + d[..., 2:3] * r[:, 2]
+
+
 def to_view_space(proj_verts: torch.Tensor) -> torch.Tensor:
     """HOGAN's fixed-camera look_at: y flip, then z shift by the eye distance."""
     flip = torch.tensor([1.0, -1.0, 1.0], dtype=proj_verts.dtype, device=proj_verts.device)
@@ -63,3 +83,14 @@ def vertices_to_faces(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tens
     safe = faces.long().clamp(0, vertices.shape[1] - 1).reshape(b, f * 3, 1)
     gathered = torch.gather(vertices, 1, safe.expand(-1, -1, vertices.shape[2]))
     return gathered.reshape(b, f, 3, 3)
+
+
+def proj_func(points: torch.Tensor, transl: torch.Tensor, rot: torch.Tensor,
+              center: torch.Tensor, focal: float = 5000.0) -> torch.Tensor:
+    """Fixed-focal perspective projection (reference hmr.py:13-42): rotate and
+    translate, pinhole-project with focal 5000, shift by `center`, then
+    /255 * 2 - 1. points (B, N, 3), transl (B, 3), rot (B, 3, 3), center (B, 2)."""
+    cam = torch.einsum("bij,bnj->bni", rot, points) + transl[:, None]
+    xy = cam[..., :2] / cam[..., 2:3]
+    img = xy * focal + center[:, None, :]
+    return img / 255.0 * 2.0 - 1.0

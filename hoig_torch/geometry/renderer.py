@@ -1,9 +1,13 @@
-"""Unified-surface-space renderer: the parts of the serving path.
+"""Unified-surface-space renderer.
 
 Port of hoig_tpu/geometry/renderer.py (reference utils/nmr.py MANORenderer):
 padded per-object tables indexed by an integer object id, the packed
 per-face attribute rows that ride the rasterizer's finish gather, the
-barycentric warp (a `gather_rows` call) and the texture backward warp.
+barycentric warp (a `gather_rows` call) and the texture backward warp on the
+serving path; off it, the separate encodings, the flow and occlusion maps,
+silhouettes, depth and the generic textured RGB render. Every run-time hard
+map goes through `rasterize_fim_wim_auto`: the B2 and B3 kernels on CUDA
+tensors (the UV atlases are rasterized on the CPU when the tables are built).
 """
 
 from __future__ import annotations
@@ -16,12 +20,21 @@ import torch
 import torch.nn.functional as F
 
 from hoig_torch.geometry import mesh as mesh_utils
-from hoig_torch.geometry.projection import HOGAN_EYE_Z
+from hoig_torch.geometry.projection import (
+    HOGAN_EYE_Z,
+    orthographic_proj_withz_fxfy,
+    orthographic_proj_withz_idrot,
+    to_view_space,
+    vertices_to_faces,
+)
 from hoig_torch.ops._cuda import resolve_device
-from hoig_torch.ops.grid_sample import grid_sample_packed
+from hoig_torch.ops.grid_sample import avg_pool, grid_sample, grid_sample_packed
 from hoig_torch.ops.morph import morph
 from hoig_torch.ops.rasterizer import rasterize_fim_wim
+from hoig_torch.ops.rasterizer_cuda import rasterize_fim_wim_auto
 from hoig_torch.ops.table_gather import gather_rows
+from hoig_torch.ops.texture import lighting as apply_lighting
+from hoig_torch.ops.texture import sample_textures_trilinear
 
 NUM_HAND_VERTS = 778
 NUM_HAND_FACES = 1538
@@ -271,3 +284,187 @@ def get_texture_backward_warp(tables: dict, im: torch.Tensor, src_f2pts: torch.T
         gap = torch.zeros(syn_tex.shape[:3] + (gap_w,), dtype=syn_tex.dtype, device=syn_tex.device)
         syn_tex = torch.cat([syn_tex[..., :keep], gap, obj_tex], dim=3)
     return syn_tex
+
+
+# ---------------------------------------------------------------------------
+# Off the serving path: separate encodings, flow, silhouettes, depth and the
+# generic texture / RGB render (nmr.py:420-475, 496-760)
+# ---------------------------------------------------------------------------
+
+
+def _project(tables: dict, cam, verts, obj_ids, image_size: int, camera_model: str):
+    """-> (crop-NDC projection (B, V, 3), view-space face corners (B, F, 3, 3),
+    faces (B, F, 3), face validity (B, F))."""
+    proj_fn = (orthographic_proj_withz_idrot if camera_model == "matrix"
+               else orthographic_proj_withz_fxfy)
+    proj = proj_fn(verts, cam, image_size=image_size)
+    ids = obj_ids.long()
+    faces, valid = tables["faces"][ids], tables["face_valid"][ids]
+    return proj, vertices_to_faces(to_view_space(proj), faces), faces, valid
+
+
+def render_fim_wim(tables: dict, cam: torch.Tensor, verts: torch.Tensor, obj_ids: torch.Tensor,
+                   image_size: int = 256, camera_model: str = "matrix", near: float = 0.1,
+                   far: float = 25.0):
+    """Project and rasterize (nmr.py:496-513).
+
+    cam (B, 15) camMat + crop ('matrix', HOv3) or (B, 10) ('fxfy', DexYCB);
+    verts (B, V, 3) hand ++ object vertices; obj_ids (B,). Returns f2pts
+    (B, Fmax, 3, 2) per-face projected xy in crop NDC (y not flipped), fim
+    (B, S, S) int32 and wim (B, S, S, 3)."""
+    proj, face_verts, faces, valid = _project(tables, cam, verts, obj_ids, image_size,
+                                              camera_model)
+    fim, wim = rasterize_fim_wim_auto(face_verts, valid, image_size=image_size, near=near,
+                                      far=far)
+    return vertices_to_faces(proj, faces)[..., 0:2], fim, wim
+
+
+def _bg_gather_index(fim: torch.Tensor, f_max: int) -> torch.Tensor:
+    """fim -1 -> the background row f_max."""
+    return torch.where(fim < 0, f_max, fim).long()
+
+
+def _gather_pixel_rows(table: torch.Tensor, fim: torch.Tensor) -> torch.Tensor:
+    """(B, Fmax+1, C) rows at each pixel's face (background row for -1) ->
+    (B, S, S, C)."""
+    b, s1, s2 = fim.shape
+    idx = _bg_gather_index(fim, table.shape[1] - 1).reshape(b, s1 * s2, 1)
+    return torch.take_along_dim(table, idx, dim=1).reshape(b, s1, s2, -1)
+
+
+def encode_fim(tables: dict, obj_ids: torch.Tensor, fim: torch.Tensor) -> torch.Tensor:
+    """fim -> condition map (B, C, S, S) (nmr.py:567-581)."""
+    return _gather_pixel_rows(tables["map_fn"][obj_ids.long()], fim).permute(0, 3, 1, 2)
+
+
+def encode_sem(tables: dict, obj_ids: torch.Tensor, fim: torch.Tensor) -> torch.Tensor:
+    """fim -> semantic id map (B, 1, S, S) (nmr.py:583-595)."""
+    return _gather_pixel_rows(tables["sem"][obj_ids.long()], fim).permute(0, 3, 1, 2)
+
+
+def encode_and_warp(tables: dict, obj_ids: torch.Tensor, fim: torch.Tensor, wim: torch.Tensor,
+                    extra_f2pts: torch.Tensor | None = None):
+    """encode_fim, encode_sem and the atlas (and optional extra) barycentric
+    warps from one row gather of `build_attr_table`'s rows. Returns (cond
+    (B,3,S,S), sem (B,1,S,S), t_uv (B,S,S,2), t_extra (B,S,S,2) | None)."""
+    rows = _gather_pixel_rows(build_attr_table(tables, obj_ids, extra_f2pts), fim)
+    return split_encoded_rows(rows, fim, wim)
+
+
+def cal_bc_transform(src_f2pts: torch.Tensor, src_fim: torch.Tensor, dst_fim: torch.Tensor,
+                     dst_wim: torch.Tensor):
+    """Destination pixel -> source-image flow and occlusion (nmr.py:874-968).
+    Returns T (B, S, S, 2) in source NDC, -2 where no face, and O (B, S, S, 1)
+    in {0, 1}."""
+    t, exist = _barycentric_warp(src_f2pts, dst_fim, dst_wim)
+    return t, _occlusion_from_fim(t, exist, dst_fim, src_fim)
+
+
+def sample_from_texture_dense(tables: dict, fim: torch.Tensor, wim: torch.Tensor,
+                              obj_ids: torch.Tensor) -> torch.Tensor:
+    """fim / wim -> atlas sampling grid (B, S, S, 2) (nmr.py:1068-1100)."""
+    t, _ = _barycentric_warp(tables["faces_uv_coord"][obj_ids.long()], fim, wim)
+    return t
+
+
+def sample_from_texture(cond: torch.Tensor) -> torch.Tensor:
+    """Sparse condition map (B, C, H, W) -> atlas grid (B, 2, H, W)
+    (nmr.py:1060-1066): -2 where the uv is zero."""
+    uv = cond[:, :2]
+    kw = dict(dtype=uv.dtype, device=uv.device)
+    mean = torch.tensor(ATLAS_MEAN, **kw)[None, :, None, None]
+    scale = torch.tensor([0.8, 2.0], **kw)[None, :, None, None]
+    nonzero = (uv != 0).to(uv.dtype)
+    return nonzero * (uv - mean) * scale + (1.0 - nonzero) * (-2.0)
+
+
+def render_silhouettes(tables: dict, cam, verts, obj_ids, image_size: int = 256,
+                       camera_model: str = "matrix") -> torch.Tensor:
+    """Coverage mask (B, S, S) through the shared projection (nmr.py:533-549)."""
+    _, fim, _ = render_fim_wim(tables, cam, verts, obj_ids, image_size, camera_model)
+    return (fim >= 0).float()
+
+
+def render_depth(tables: dict, cam, verts, obj_ids, image_size: int = 256,
+                 camera_model: str = "matrix") -> torch.Tensor:
+    """View-space depth map (B, S, S), near 0.1, far 25 (nmr.py:515-531)."""
+    _, face_verts, _, valid = _project(tables, cam, verts, obj_ids, image_size, camera_model)
+    return rasterize_fim_wim_auto(face_verts, valid, image_size=image_size, near=0.1, far=25.0,
+                                  depth=True)[2]
+
+
+def create_coords(tex_size: int = 3, device="cuda") -> torch.Tensor:
+    """(2, T*T) barycentric sample grid (nmr.py:731-746), on the card unless
+    the caller passes device="cpu"."""
+    step = 1.0 if tex_size == 1 else 1.0 / (tex_size - 1)
+    ab = np.arange(0, 1 + step, step, dtype=np.float32)
+    xv, yv = np.meshgrid(ab, ab, indexing="ij")
+    return torch.as_tensor(np.stack([xv.ravel(), yv.ravel()], axis=0),
+                           device=resolve_device(device))
+
+
+def create_meshgrid(image_size: int, device="cuda") -> torch.Tensor:
+    """(S, S, 2) sampling grid in [-1, 1] with the reference's (y, x)
+    stacking (nmr.py:749-760), on the card unless the caller passes
+    device="cpu"."""
+    factor = (np.arange(image_size, dtype=np.float32) / (image_size - 1) - 0.5) * 2
+    xv, yv = np.meshgrid(factor, factor, indexing="ij")
+    return torch.as_tensor(np.stack([yv, xv], axis=-1), device=resolve_device(device))
+
+
+def points_to_sampler(coords: torch.Tensor, faces_pts: torch.Tensor) -> torch.Tensor:
+    """Per-face barycentric sample points (nmr.py:709-728): coords (2, T*T),
+    faces_pts (B, F, 3, 2) -> (B, F, T*T, 2) clamped to [-1, 1]."""
+    v2 = faces_pts[:, :, 2]
+    basis = torch.stack([faces_pts[:, :, 0] - v2, faces_pts[:, :, 1] - v2], dim=-1)  # (B,F,2,2)
+    samples = torch.einsum("bfct,tk->bfck", basis, coords) + v2[..., None]
+    return samples.permute(0, 1, 3, 2).clamp(-1.0, 1.0)
+
+
+def batch_orth_proj_idrot(camera: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Weak-perspective projection (nmr.py:691-706), camera (B, 3) = [s, tx, ty]."""
+    return camera[:, None, 0:1] * (pts[:, :, :2] + camera[:, None, 1:])
+
+
+def extract_tex(uv_img: torch.Tensor, uv_sampler: torch.Tensor, tex_size: int) -> torch.Tensor:
+    """Image -> per-face texture cubes (nmr.py:608-629): uv_img (B, 3, H, W),
+    uv_sampler (B, F, T*T, 2) -> (B, F, T, T, T, 3), constant along the
+    fourth axis."""
+    tex = grid_sample(uv_img, uv_sampler, align_corners=True)  # (B, 3, F, T*T)
+    b, _, nf, _ = tex.shape
+    t = tex_size
+    tex = tex.reshape(b, 3, nf, t, t).permute(0, 2, 3, 4, 1)
+    return tex[:, :, :, :, None, :].expand(-1, -1, -1, -1, t, -1).contiguous()
+
+
+def dynamic_sampler(tables: dict, cam_weak, vertices, obj_ids, tex_size: int = 3):
+    """Weak-perspective per-face UV sampler (nmr.py:631-637)."""
+    points = batch_orth_proj_idrot(cam_weak, vertices)
+    faces = tables["faces"][obj_ids.long()]
+    faces_pts = vertices_to_faces(torch.cat([points, torch.zeros_like(points[..., :1])], -1),
+                                  faces)[..., :2]
+    return points_to_sampler(create_coords(tex_size, device=vertices.device), faces_pts)
+
+
+def extract_tex_from_image(tables: dict, images, cam_weak, vertices, obj_ids,
+                           tex_size: int = 3):
+    """Per-face texture cubes read from images (nmr.py:598-606)."""
+    return extract_tex(images, dynamic_sampler(tables, cam_weak, vertices, obj_ids, tex_size),
+                       tex_size)
+
+
+def render_rgb(tables: dict, cam: torch.Tensor, verts: torch.Tensor, textures: torch.Tensor,
+               obj_ids: torch.Tensor, image_size: int = 256, camera_model: str = "matrix",
+               anti_aliasing: bool = True, background_color=(0.0, 0.0, 0.0),
+               light: dict | None = None) -> torch.Tensor:
+    """RGB render (nmr.py:439-475): lighting, projection, rasterization at 2S
+    with anti_aliasing, trilinear texture sampling, 2x2 average pooling.
+    textures (B, F, T, T, T, 3) over the object's merged face table.
+    Returns (B, 3, S, S)."""
+    proj, face_verts, faces, valid = _project(tables, cam, verts, obj_ids, image_size,
+                                              camera_model)
+    textures = apply_lighting(vertices_to_faces(verts, faces), textures, **(light or {}))
+    s = image_size * 2 if anti_aliasing else image_size
+    fim, wim = rasterize_fim_wim_auto(face_verts, valid, image_size=s, near=0.1, far=25.0)
+    rgb = sample_textures_trilinear(textures, fim, wim, background_color).permute(0, 3, 1, 2)
+    return avg_pool(rgb, 2) if anti_aliasing else rgb

@@ -68,8 +68,10 @@ def _conv_in_relu(fp: tuple, t_conv: str, t_in: str, convt: bool = False):
     ]
 
 
-def _residual(fp: tuple, tp: str):
-    return [
+def _residual(fp: tuple, tp: str, learned_shortcut: bool = False):
+    """ResidualBlock; with `learned_shortcut` (dim_in != dim_out) also its
+    norm_s (InstanceNorm) and conv_s (1x1, no bias)."""
+    out = [
         (fp + ("Conv_0", "kernel"), f"{tp}.main.0.weight", _CONV),
         (fp + ("InstanceNorm_0", "scale"), f"{tp}.main.1.weight", _DIRECT),
         (fp + ("InstanceNorm_0", "bias"), f"{tp}.main.1.bias", _DIRECT),
@@ -77,14 +79,27 @@ def _residual(fp: tuple, tp: str):
         (fp + ("InstanceNorm_1", "scale"), f"{tp}.main.4.weight", _DIRECT),
         (fp + ("InstanceNorm_1", "bias"), f"{tp}.main.4.bias", _DIRECT),
     ]
+    if learned_shortcut:
+        out += [
+            (fp + ("norm_s", "scale"), f"{tp}.norm_s.weight", _DIRECT),
+            (fp + ("norm_s", "bias"), f"{tp}.norm_s.bias", _DIRECT),
+            (fp + ("conv_s", "kernel"), f"{tp}.conv_s.weight", _CONV),
+        ]
+    return out
 
 
-def _spade_residual(fp: tuple, tp: str):
+def _spade_residual(fp: tuple, tp: str, learned_shortcut: bool = False):
+    """SPADEResidualBlock; with `learned_shortcut` also its norm_s (SPADE)
+    and conv_s (1x1, no bias)."""
     out = []
     for c in ("conv_0", "conv_1"):
         out.append((fp + (c, "kernel"), f"{tp}.{c}.weight", _CONV))
         out.append((fp + (c, "bias"), f"{tp}.{c}.bias", _DIRECT))
-    return out + _spade(fp + ("norm_0",), f"{tp}.norm_0") + _spade(fp + ("norm_1",), f"{tp}.norm_1")
+    out += _spade(fp + ("norm_0",), f"{tp}.norm_0") + _spade(fp + ("norm_1",), f"{tp}.norm_1")
+    if learned_shortcut:
+        out += _spade(fp + ("norm_s",), f"{tp}.norm_s")
+        out.append((fp + ("conv_s", "kernel"), f"{tp}.conv_s.weight", _CONV))
+    return out
 
 
 def _spade_block(fp: tuple, tp: str, convt: bool = False):

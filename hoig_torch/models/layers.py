@@ -110,35 +110,50 @@ class SPADE(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """conv-IN-ReLU-conv-IN with an identity shortcut (dims equal)."""
+    """conv-IN-ReLU-conv-IN plus a shortcut: the identity when dim_out is
+    dim (every HOGAN config), else the learned InstanceNorm(affine) `norm_s`
+    and 1x1 `conv_s` without bias."""
 
-    def __init__(self, dim: int, cd: torch.dtype):
+    def __init__(self, dim: int, cd: torch.dtype, dim_out: int | None = None):
         super().__init__()
+        dim_out = dim if dim_out is None else dim_out
         self.main = nn.Sequential(
-            Conv2d(dim, dim, 3, 1, 1, bias=False, compute_dtype=cd),
-            InstanceNorm(dim, compute_dtype=cd), nn.ReLU(),
-            Conv2d(dim, dim, 3, 1, 1, bias=False, compute_dtype=cd),
-            InstanceNorm(dim, compute_dtype=cd),
+            Conv2d(dim, dim_out, 3, 1, 1, bias=False, compute_dtype=cd),
+            InstanceNorm(dim_out, compute_dtype=cd), nn.ReLU(),
+            Conv2d(dim_out, dim_out, 3, 1, 1, bias=False, compute_dtype=cd),
+            InstanceNorm(dim_out, compute_dtype=cd),
         )
+        self.learned_shortcut = dim_out != dim
+        if self.learned_shortcut:
+            self.norm_s = InstanceNorm(dim, compute_dtype=cd)
+            self.conv_s = Conv2d(dim, dim_out, 1, bias=False, compute_dtype=cd)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.main(x)
+        s = self.conv_s(self.norm_s(x)) if self.learned_shortcut else x
+        return s + self.main(x)
 
 
 class SPADEResidualBlock(nn.Module):
-    """SPADE-ReLU-conv twice with an identity shortcut (dims equal)."""
+    """SPADE-ReLU-conv twice plus a shortcut: the identity when dim_out is
+    dim, else the learned SPADE `norm_s` and 1x1 `conv_s` without bias."""
 
-    def __init__(self, dim: int, label_nc: int, cd: torch.dtype):
+    def __init__(self, dim: int, label_nc: int, cd: torch.dtype, dim_out: int | None = None):
         super().__init__()
-        self.conv_0 = Conv2d(dim, dim, 3, 1, 1, compute_dtype=cd)
-        self.conv_1 = Conv2d(dim, dim, 3, 1, 1, compute_dtype=cd)
+        dim_out = dim if dim_out is None else dim_out
+        self.conv_0 = Conv2d(dim, dim_out, 3, 1, 1, compute_dtype=cd)
+        self.conv_1 = Conv2d(dim_out, dim_out, 3, 1, 1, compute_dtype=cd)
         self.norm_0 = SPADE(dim, label_nc, cd)
-        self.norm_1 = SPADE(dim, label_nc, cd)
+        self.norm_1 = SPADE(dim_out, label_nc, cd)
+        self.learned_shortcut = dim_out != dim
+        if self.learned_shortcut:
+            self.norm_s = SPADE(dim, label_nc, cd)
+            self.conv_s = Conv2d(dim, dim_out, 1, bias=False, compute_dtype=cd)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+        s = self.conv_s(self.norm_s(x, seg)) if self.learned_shortcut else x
         y = self.conv_0(F.relu(self.norm_0(x, seg)))
         y = self.conv_1(F.relu(self.norm_1(y, seg)))
-        return x + y
+        return s + y
 
 
 class SPADEBlock(nn.Module):

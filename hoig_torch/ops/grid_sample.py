@@ -10,6 +10,7 @@ x = grid[..., 0], y = grid[..., 1] in [-1, 1]; align_corners=False maps
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _unnormalize(coord: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
@@ -48,9 +49,13 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor, align_corners: bool = F
     return out.permute(0, 3, 1, 2)
 
 
-# the JAX package packs the 2x2 footprint into one wide-row gather for the
-# TPU; the values are those of grid_sample
-grid_sample_packed = grid_sample
+def grid_sample_packed(image: torch.Tensor, grid: torch.Tensor,
+                       align_corners: bool = False) -> torch.Tensor:
+    """`grid_sample` under the JAX package's name for its TPU form, which packs
+    the 2x2 footprint into one wide-row gather (narrow row gathers are slow on
+    the TPU). The values are those of `grid_sample`; so is the arithmetic here.
+    image (N, C, H, W), grid (N, Ho, Wo, 2) -> (N, C, Ho, Wo)."""
+    return grid_sample(image, grid, align_corners)
 
 
 def _resize_axis_linear_ac(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
@@ -74,3 +79,30 @@ def _resize_axis_linear_ac(x: torch.Tensor, axis: int, out_size: int) -> torch.T
     shape[axis] = out_size
     t = t.reshape(shape).to(x.dtype)
     return a * (1 - t) + b * t
+
+
+def resize_bilinear_align_corners(image: torch.Tensor, out_hw: tuple) -> torch.Tensor:
+    """torch `F.interpolate(mode='bilinear', align_corners=True)` on (..., H, W),
+    evaluated axis by axis as the JAX package does."""
+    out = _resize_axis_linear_ac(image, image.dim() - 2, out_hw[0])
+    return _resize_axis_linear_ac(out, image.dim() - 1, out_hw[1])
+
+
+def resize_nearest(image: torch.Tensor, out_hw: tuple) -> torch.Tensor:
+    """torch `F.interpolate(mode='nearest')` on (..., H, W): source index
+    floor(i * in / out), clamped."""
+    h, w = image.shape[-2], image.shape[-1]
+    dev = image.device
+    rows = (torch.arange(out_hw[0], device=dev) * (h / out_hw[0])).floor().long().clamp(0, h - 1)
+    cols = (torch.arange(out_hw[1], device=dev) * (w / out_hw[1])).floor().long().clamp(0, w - 1)
+    return image.index_select(image.dim() - 2, rows).index_select(image.dim() - 1, cols)
+
+
+def avg_pool(image: torch.Tensor, ks: int, stride: int | None = None) -> torch.Tensor:
+    """torch `F.avg_pool2d` (no padding) over the last two axes of a tensor
+    with any number of leading axes."""
+    stride = stride or ks
+    lead = image.shape[:-2]
+    x = image.reshape((-1, 1) + tuple(image.shape[-2:]))
+    out = F.avg_pool2d(x, ks, stride)
+    return out.reshape(tuple(lead) + tuple(out.shape[-2:]))

@@ -43,13 +43,14 @@ def face_bbox(face_verts: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 
 
 def rasterize_zbuffer(setup: dict, bbox: torch.Tensor, image_size: int, near: float,
-                      far: float) -> torch.Tensor:
+                      far: float, chunk: int = 128) -> torch.Tensor:
     """Winning face per pixel, (B, S*S) int32, -1 background, raster order.
 
-    setup: `_face_setup` output for (B, F) faces; bbox: `face_bbox`."""
+    setup: `_face_setup` output for (B, F) faces; bbox: `face_bbox`; chunk:
+    the face chunk of the plain version (CPU tensors only)."""
     edge, izp, keep = setup["edge"], setup["izp"], setup["keep"]
     if edge.device.type == "cpu":
-        return zbuffer_reference(setup, image_size, near, far)
+        return zbuffer_reference(setup, image_size, near, far, chunk)
     b, f = keep.shape
     edge9 = edge.reshape(b, f, 9).contiguous()
     izp = izp.contiguous()
@@ -81,12 +82,17 @@ def rasterize_zbuffer(setup: dict, bbox: torch.Tensor, image_size: int, near: fl
 
 def rasterize_fim_wim_auto(face_verts: torch.Tensor, face_valid: torch.Tensor | None = None,
                            image_size: int = 256, near: float = 0.1, far: float = 100.0,
-                           attrs: torch.Tensor | None = None):
-    """fim (B,S,S) int32, wim (B,S,S,3) f32[, rows (B,S,S,A) with attrs].
+                           attrs: torch.Tensor | None = None, chunk: int = 128,
+                           depth: bool = False):
+    """fim (B,S,S) int32, wim (B,S,S,3) f32[, rows (B,S,S,A) with attrs][,
+    depth (B,S,S) f32 with depth].
 
     attrs: optional (B, F+1, A) per-face rows, row F = background; their
-    per-pixel rows ride the finish's gather."""
+    per-pixel rows ride the finish's gather, and so do the winner's corner
+    depths with `depth` (`far` on the background). chunk: the plain
+    z-buffer's face chunk on CPU tensors."""
     setup = _face_setup(face_verts, face_valid, image_size)
     bbox = face_bbox(face_verts, setup["keep"])
-    idx = rasterize_zbuffer(setup, bbox, image_size, near, far)
-    return finish(idx, setup["finv"], attrs, image_size, gather=gather_rows)
+    idx = rasterize_zbuffer(setup, bbox, image_size, near, far, chunk)
+    return finish(idx, setup["finv"], attrs, image_size, gather=gather_rows,
+                  z=setup["z"] if depth else None, far=far)

@@ -7,11 +7,13 @@ under checkpoints_dir/name, so the reference's auto-resume scan
 working. The payload is `torch.save` of state dicts, read back with
 `weights_only=True`; a generator also loads from an `.npz` dump.
 
-The networks of a JAX run load too: the JAX package writes the same names
-with the suffix `.ckpt`, flax msgpack of the parameter trees (read by
-`flax_ckpt`, mapped by `hoig_torch.models.convert`). Only G and D carry
-over; optax's Adam state does not, so training cannot resume from a JAX
-epoch and says so rather than starting again at epoch 0.
+A JAX run's epochs load too: the JAX package writes the same names with the
+suffix `.ckpt`, flax msgpack of the parameter trees and of optax's Adam
+state (read by `flax_ckpt`; the parameters mapped by
+`hoig_torch.models.convert`, the Adam moments by `optax_state`). Training
+resumes from such an epoch as from its own: auto-resume, --load_epoch and
+`load_checkpoint` take whichever kind an epoch has complete, this package's
+`.pth` first.
 """
 
 from __future__ import annotations
@@ -26,17 +28,11 @@ def _path(save_dir: str, kind: str, epoch, label: str, suffix: str = ".pth") -> 
     return os.path.join(save_dir, f"{kind}_epoch_{epoch}_id_{label}{suffix}")
 
 
-class JaxResumeError(RuntimeError):
-    """Training asked to resume from epochs that only a JAX run wrote."""
+_FILES = tuple((kind, net) for kind in ("net", "opt") for net in ("G", "D"))
 
 
-def _jax_resume_error(save_dir: str, epoch) -> JaxResumeError:
-    return JaxResumeError(
-        f"{save_dir}: epoch {epoch} is a JAX run's (flax .ckpt files), and this package wrote "
-        "no epoch to resume from there. A JAX run's G can be evaluated (eval_torch.py "
-        f"--load_epoch {epoch}) or loaded with --load_path "
-        f"{_path(save_dir, 'net', epoch, 'G', '.ckpt')}; a JAX optimizer state (optax Adam) "
-        "cannot be resumed by this package. Train into another --name or --checkpoints_dir.")
+def _complete(save_dir: str, epoch, suffix: str, files=_FILES) -> bool:
+    return all(os.path.exists(_path(save_dir, kind, epoch, net, suffix)) for kind, net in files)
 
 
 def _load(path: str, device):
@@ -62,19 +58,17 @@ def save_checkpoint(save_dir: str, epoch, state) -> None:
 
 
 def load_checkpoint(save_dir: str, epoch, state, load_optimizers: bool = True, tcfg=None):
-    """Restore, in place, a TrainState saved by `save_checkpoint`; G only
-    unless `load_optimizers`. Without this package's G file, G comes from a
-    JAX run's `net_epoch_{E}_id_G.ckpt` (`tcfg` gives its layout); resuming
-    the optimizers from a JAX epoch raises `JaxResumeError`."""
+    """Restore, in place, a TrainState saved by `save_checkpoint` or by the
+    JAX package (its `.ckpt` files, read when this package's own files of the
+    epoch are not all there; `tcfg` gives G's layout); G only unless
+    `load_optimizers`."""
     from hoig_torch.train.trainer import set_lr
 
+    files = _FILES if load_optimizers else (("net", "G"),)
+    if not _complete(save_dir, epoch, ".pth", files) and _complete(save_dir, epoch, ".ckpt",
+                                                                   files):
+        return _load_jax_epoch(save_dir, epoch, state, load_optimizers, tcfg)
     g_path = _path(save_dir, "net", epoch, "G")
-    jax_g = _path(save_dir, "net", epoch, "G", ".ckpt")
-    if not os.path.exists(g_path) and os.path.exists(jax_g):
-        if load_optimizers:
-            raise _jax_resume_error(save_dir, epoch)
-        load_generator_params(state.g, jax_g, tcfg)
-        return state
     device = next(state.g.parameters()).device
     state.g.load_state_dict(_strip_module_prefix(_load(g_path, device)))
     if load_optimizers:
@@ -86,6 +80,41 @@ def load_checkpoint(save_dir: str, epoch, state, load_optimizers: bool = True, t
         state.opt_d.load_state_dict(od["opt"])
         state.step = int(og["step"])
         set_lr(state, float(og["lr"]), float(od["lr"]))
+    return state
+
+
+def _load_jax_epoch(save_dir: str, epoch, state, load_optimizers: bool, tcfg):
+    files = [("net", "G")] + ([("net", "D"), ("opt", "G"), ("opt", "D")] if load_optimizers
+                              else [])
+    return load_jax_state(state, tcfg, *(_flax_params(_path(save_dir, kind, epoch, net, ".ckpt"))
+                                         for kind, net in files))
+
+
+def load_jax_state(state, tcfg, net_g: dict, net_d: dict | None = None, opt_g: dict | None = None,
+                   opt_d: dict | None = None):
+    """A JAX run's trees (numpy leaves, as its `.ckpt` files hold them) into
+    `state`, in place: G (laid out by `tcfg`) and, with the others, D through
+    the parameter maps, optax's Adam moments into each optimizer by its own
+    `load_state_dict` (Adam's step where torch keeps it), the learning rates
+    and the step counter. opt_g / opt_d: `{"opt": {"0": {"count", "mu",
+    "nu"}, "1": {}}, "lr"[, "step"]}`."""
+    from hoig_torch.models.convert import (discriminator_mapping, discriminator_state_dict_from_flax,
+                                           generator_mapping, generator_state_dict_from_flax)
+    from hoig_torch.train.optax_state import adam_state_dict_from_optax
+    from hoig_torch.train.trainer import set_lr
+
+    if tcfg is None:
+        raise ValueError("loading a flax generator needs the TrainConfig (its layout)")
+    state.g.load_state_dict(generator_state_dict_from_flax(net_g, tcfg))
+    if net_d is None:
+        return state
+    state.d.load_state_dict(discriminator_state_dict_from_flax(net_d, 4))
+    for opt, tree, module, mapping in (
+            (state.opt_g, opt_g, state.g, generator_mapping(tcfg.gen_name, tcfg.repeat_num)),
+            (state.opt_d, opt_d, state.d, discriminator_mapping(4))):
+        opt.load_state_dict(adam_state_dict_from_optax(tree["opt"], opt, module, mapping))
+    state.step = int(opt_g["step"])
+    set_lr(state, float(opt_g["lr"]), float(opt_d["lr"]))
     return state
 
 
@@ -143,12 +172,11 @@ def load_discriminator_params(d_model: torch.nn.Module, load_path: str,
 
 
 def scan_latest_epoch(save_dir: str) -> int:
-    """Auto-resume scan. Only epochs whose COMPLETE file set (net + opt for
-    G and D) is present count: a run killed mid-save leaves a torn epoch
-    that would break every later auto-resume, so the scan falls back to the
-    newest complete epoch. A directory whose only complete epochs are a JAX
-    run's (`.ckpt`) raises `JaxResumeError` instead of returning 0, which
-    would start training again from scratch."""
+    """Auto-resume scan: the newest epoch whose COMPLETE file set (net + opt
+    for G and D) is present, as this package's `.pth` files or a JAX run's
+    `.ckpt` files (`load_checkpoint` takes the `.pth` set where an epoch has
+    both). A run killed mid-save leaves a torn epoch that would break every
+    later auto-resume, so the scan falls back to the newest complete one."""
     if not os.path.isdir(save_dir):
         return 0
     epochs = set()
@@ -157,12 +185,5 @@ def scan_latest_epoch(save_dir: str) -> int:
         if m:
             epochs.add(int(m.group(1)))
 
-    def newest(suffix):
-        return max((e for e in epochs
-                    if all(os.path.exists(_path(save_dir, kind, e, net, suffix))
-                           for kind in ("net", "opt") for net in ("G", "D"))), default=0)
-
-    latest = newest(".pth")
-    if latest == 0 and newest(".ckpt"):
-        raise _jax_resume_error(save_dir, newest(".ckpt"))
-    return latest
+    return max((e for e in epochs
+                if _complete(save_dir, e, ".pth") or _complete(save_dir, e, ".ckpt")), default=0)

@@ -5,15 +5,19 @@ The JAX package's eval.py runs once at 32 px (random weights) and its model
 saves epoch 1 through hoig_tpu.train.checkpoints (flax msgpack `.ckpt`);
 the port then loads that epoch bit-equal to `*_state_dict_from_flax` of the
 same parameters and evaluates it, through --load_path and through
---load_epoch, to eval.py's fakes. Training may not resume from it.
+--load_epoch, to eval.py's fakes. A later JAX epoch, whose optax Adam state
+has taken steps (D fewer of them, as a gated D does), resumes training in the
+port by each route, and the step after the resume matches optax's.
 """
 
+import functools
 import os
 
 import flax.serialization
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from PIL import Image
@@ -73,7 +77,7 @@ def jax_run(tmp_path_factory):
     return dict(dir=tmp / "jck" / "t", tmp=tmp, fakes=seen["fakes"],
                 params_g=jax.tree.map(np.asarray, jmodel._state.params_g),
                 params_d=jax.tree.map(np.asarray, jmodel._state.params_d), tcfg=jmodel._tcfg,
-                env=_torch_env(jtables, ConditioningConfig(image_size=S)))
+                jstate=jmodel._state, env=_torch_env(jtables, ConditioningConfig(image_size=S)))
 
 
 def _port_state(tmp_path):
@@ -156,21 +160,194 @@ def test_eval_torch_on_a_jax_checkpoint_matches_eval_py(jax_run, mode, tmp_path,
             assert diff.max() <= 1, (sub, stem)
 
 
-@pytest.mark.parametrize("how", ["auto_resume", "explicit_epoch", "load_checkpoint"])
-def test_training_does_not_resume_from_jax_epochs(jax_run, how, tmp_path):
-    """Over a directory of JAX epochs, training raises and names the epoch;
-    it does not start again at epoch 0."""
-    d = jax_run["dir"]
+@functools.lru_cache(maxsize=None)
+def _adam_step(b1: float, b2: float):
+    """One optax Adam step, the update times the learning rate, as the JAX
+    train step applies it (hoig_tpu/train/trainer.py:329-349); jitted once
+    per (b1, b2) and tree, for every test of a worker."""
+    opt = optax.adam(1.0, b1=b1, b2=b2)
+
+    @jax.jit
+    def step(grads, opt_state, params, lr):
+        upd, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, jax.tree.map(lambda u: u * lr, upd)), opt_state
+
+    return step
+
+
+def _optax_steps(jstate, tcfg, n_g: int, n_d: int, seed: int):
+    """The JAX state after n_g Adam steps of G and n_d of D on random
+    gradients."""
+    step = _adam_step(tcfg.adam_b1, tcfg.adam_b2)
+    rng = np.random.RandomState(seed)
+
+    def advance(params, opt_state, lr, n):
+        for _ in range(n):
+            grads = jax.tree.map(lambda p: rng.randn(*p.shape).astype(np.float32) * 1e-2, params)
+            params, opt_state = step(grads, opt_state, params, lr)
+        return params, opt_state
+
+    pg, og = advance(jstate.params_g, jstate.opt_g, jstate.lr_g, n_g)
+    pd, od = advance(jstate.params_d, jstate.opt_d, jstate.lr_d, n_d)
+    return jstate.replace(params_g=pg, opt_g=og, params_d=pd, opt_d=od,
+                          step=jnp.asarray(n_g, jnp.int32), lr_g=jnp.float32(1.5e-4),
+                          lr_d=jnp.float32(0.7e-4))
+
+
+@pytest.fixture(scope="module", params=["d_trained", "d_gated"])
+def jax_resume(jax_run, request):
+    """A JAX run directory whose newest epoch (2) was saved after 3 steps: D
+    took all 3 or, gated, only 1; epoch 1 (Adam untouched) stays beside it."""
+    from hoig_tpu.train import checkpoints as jckpt
+
+    n_d = 3 if request.param == "d_trained" else 1
+    jstate = _optax_steps(jax_run["jstate"], jax_run["tcfg"], 3, n_d, seed=21)
+    run = jax_run["tmp"] / f"resume_{request.param}"
+    d = run / "t"
+    d.mkdir(parents=True)
+    for f in os.listdir(jax_run["dir"]):
+        if "_epoch_1_" in f:
+            (d / f).write_bytes((jax_run["dir"] / f).read_bytes())
+    jckpt.save_checkpoint(str(d), 2, jstate)
+    return dict(dir=d, jstate=jstate, n_d=n_d)
+
+
+def _resumed_model(jax_run, jax_resume, how, tmp_path):
+    """A HOIGModel whose state came back from the JAX epoch 2 by `how`."""
+    d = jax_resume["dir"]
     args = ARGS + ["--device", "cpu", "--checkpoints_dir", str(d.parent)]
-    with pytest.raises(ckpt.JaxResumeError, match=r"epoch 1 is a JAX run's.*--load_path"):
-        if how == "auto_resume":
-            TrainOptions().parse(args)
-        elif how == "explicit_epoch":
-            model_api.HOIGModel(TrainOptions().parse(args + ["--load_epoch", "1"]),
-                                env=jax_run["env"])
-        else:
-            ckpt.load_checkpoint(str(d), 1, _port_state(tmp_path)[0])
-    assert ckpt.scan_latest_epoch(str(tmp_path)) == 0  # an empty directory still starts at 0
+    if how == "auto_resume":
+        opt = TrainOptions().parse(args)
+        assert opt.load_epoch == 2  # the newest complete epoch, a JAX one
+    elif how == "explicit_epoch":
+        opt = TrainOptions().parse(args + ["--load_epoch", "2"])
+    else:
+        opt = TrainOptions().parse(ARGS + ["--device", "cpu", "--checkpoints_dir",
+                                           str(tmp_path)])
+        assert opt.load_epoch == 0
+    model = model_api.HOIGModel(opt, env=jax_run["env"])
+    if how == "load_checkpoint":
+        ckpt.load_checkpoint(str(d), 2, model._state, tcfg=model._tcfg)
+    return model
+
+
+def _flax_close(tree, ref, atol):
+    flat = dict(jax.tree_util.tree_leaves_with_path(tree))
+    ref = jax.tree_util.tree_leaves_with_path(ref)
+    assert len(flat) == len(ref) > 0
+    for path, leaf in ref:
+        np.testing.assert_allclose(flat[path], np.asarray(leaf), atol=atol, rtol=0,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("how", ["auto_resume", "explicit_epoch", "load_checkpoint"])
+def test_training_resumes_from_jax_epochs(jax_run, jax_resume, how, tmp_path):
+    """Over a directory of JAX epochs, training resumes from the newest by
+    each route: G and D bit-equal to the mapped JAX parameters, the Adam
+    moments bit-equal to optax's mu and nu after the layout maps, Adam's step
+    = optax's count (3 for G; 3 or 1 for a gated D) as a CPU float32 scalar
+    where torch keeps it, the learning rates and the step counter. Then one
+    Adam step of each resumed optimizer against optax's update of the saved
+    JAX state on the same gradients (random, mapped to the flax layout):
+    weights and moments within 1e-6, the bound of
+    tests/test_torch_train.py::test_adam_matches_optax."""
+    from hoig_torch.models.convert import discriminator_mapping, generator_mapping
+    from hoig_torch.train.optax_state import optax_from_adam
+
+    model = _resumed_model(jax_run, jax_resume, how, tmp_path)
+    state, tcfg, js = model._state, model._tcfg, jax_resume["jstate"]
+    gmap, dmap = generator_mapping(tcfg.gen_name, tcfg.repeat_num), discriminator_mapping(4)
+    _equal(state.g.state_dict(), generator_state_dict_from_flax(
+        jax.tree.map(np.asarray, js.params_g), tcfg))
+    _equal(state.d.state_dict(), discriminator_state_dict_from_flax(
+        jax.tree.map(np.asarray, js.params_d)))
+    for opt, module, mapping, jopt, count in (
+            (state.opt_g, state.g, gmap, js.opt_g, 3),
+            (state.opt_d, state.d, dmap, js.opt_d, jax_resume["n_d"])):
+        assert int(jopt[0].count) == count
+        for p in module.parameters():
+            st = opt.state[p]
+            assert st["step"].device.type == "cpu" and st["step"].dtype == torch.float32
+            assert float(st["step"]) == count
+        back = optax_from_adam(opt, module, mapping)["0"]
+        assert int(back["count"]) == count
+        _flax_close(back["mu"], jopt[0].mu, 0.0)
+        _flax_close(back["nu"], jopt[0].nu, 0.0)
+    assert state.step == 3 and model._opt.load_epoch in (0, 2)
+    np.testing.assert_allclose([state.lr_g, state.lr_d], [1.5e-4, 0.7e-4], rtol=1e-6)
+    assert state.opt_g.param_groups[0]["lr"] == state.lr_g
+
+    # the step after the resume: the optimizer half of a train step (the
+    # discriminator needs 64 px, this run is 32), on the same random
+    # gradients in both layouts
+    rng = np.random.RandomState(22)
+    step_j = _adam_step(tcfg.adam_b1, tcfg.adam_b2)
+    for module, mapping, params, jopt, lr, opt in (
+            (state.g, gmap, js.params_g, js.opt_g, js.lr_g, state.opt_g),
+            (state.d, dmap, js.params_d, js.opt_d, js.lr_d, state.opt_d)):
+        for p in module.parameters():
+            p.grad = torch.as_tensor(rng.randn(*p.shape).astype(np.float32) * 1e-2)
+        opt.step()
+        grads = {"params": convert_tree(module, mapping, grads=True)}
+        new_params, new_opt = step_j(grads, jopt, params, lr)
+        _flax_close({"params": convert_tree(module, mapping)}, new_params, 1e-6)
+        back = optax_from_adam(opt, module, mapping)["0"]
+        assert int(back["count"]) == int(new_opt[0].count)
+        _flax_close(back["mu"], new_opt[0].mu, 1e-6)
+        _flax_close(back["nu"], new_opt[0].nu, 1e-6)
+
+
+def convert_tree(module, mapping, grads: bool = False) -> dict:
+    """The module's weights (or their .grad) on the flax tree's paths."""
+    from hoig_torch.models.convert import flax_tree_from_torch
+
+    named = {n: (p.grad if grads else p.detach()) for n, p in module.named_parameters()}
+    return flax_tree_from_torch(named, mapping)
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_scan_takes_the_newest_complete_epoch_of_either_kind(tmp_path, monkeypatch):
+    """Port and JAX epochs in one directory: the newest complete one wins, a
+    torn epoch of either kind does not count, and load_checkpoint reads the
+    port's .pth set where an epoch has both, the .ckpt set where it has
+    only that."""
+    d = tmp_path / "run"
+    d.mkdir()
+    for e, suffix in ((1, ".pth"), (2, ".ckpt"), (3, ".pth"), (3, ".ckpt")):
+        for kind in ("net", "opt"):
+            for net in ("G", "D"):
+                (d / f"{kind}_epoch_{e}_id_{net}{suffix}").write_bytes(b"")
+    (d / "net_epoch_5_id_G.ckpt").write_bytes(b"")  # torn: G only
+    (d / "net_epoch_4_id_G.pth").write_bytes(b"")
+    assert ckpt.scan_latest_epoch(str(d)) == 3
+    (d / "opt_epoch_3_id_D.pth").unlink()  # epoch 3's .pth set torn: its .ckpt set counts
+    assert ckpt.scan_latest_epoch(str(d)) == 3
+    (d / "opt_epoch_3_id_D.ckpt").unlink()
+    assert ckpt.scan_latest_epoch(str(d)) == 2
+    assert ckpt.scan_latest_epoch(str(tmp_path / "absent")) == 0
+
+    seen = []
+
+    def record(path, *_):
+        seen.append(os.path.basename(path))
+        raise _Stop
+
+    monkeypatch.setattr(ckpt, "_load", record)
+    monkeypatch.setattr(ckpt, "_flax_params", record)
+    state, _ = _port_state(tmp_path)
+    for epoch, want in ((1, "net_epoch_1_id_G.pth"), (2, "net_epoch_2_id_G.ckpt")):
+        with pytest.raises(_Stop):
+            ckpt.load_checkpoint(str(d), epoch, state, tcfg=object())
+        assert seen.pop() == want
+    for kind in ("net", "opt"):  # epoch 1 of both kinds: the .pth set
+        for net in ("G", "D"):
+            (d / f"{kind}_epoch_1_id_{net}.ckpt").write_bytes(b"")
+    with pytest.raises(_Stop):
+        ckpt.load_checkpoint(str(d), 1, state)
+    assert seen.pop() == "net_epoch_1_id_G.pth"
 
 
 _DTYPES = ["float32", "bfloat16", "float16", "float64", "int32", "int64", "int8", "uint8", "bool"]
