@@ -158,8 +158,26 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      of each, whose mean |G difference| is at most twice the largest of
      three pairs of steps from the original state and two deep copies of
      it (the bf16 step's atomics);
- 12. print the drivers line, the phase 10 line, the phase 11 line, the
-     kernels line, the card line and, last, the result line.
+ 12. the measuring tools: scripts/profile_step_torch.py as a subprocess
+     (its own profiler session) for the fp32 batch-8 gather training step
+     with the drivers' fp32 remat (full; 2 steps) and for the bf16 batch-4
+     fused serving call (2 calls): device busy share, operator classes, top
+     kernels, the 10 longest idle gaps and the peak memory from its JSON
+     line, its launch counters per step or call (1 / 2 of B2 / B3, and 9 of
+     B4-fwd for the fused call) and, from its profile, bin_kernel and
+     raster_kernel once and gather_kernel twice (the fused call also
+     conv5_tc_kernel and fwd_pixel_kernel 9 times and slice_sum_kernel once
+     per layer whose product splits), no other hand-written kernel;
+     scripts/attn_ab_torch.py's `run` over the three layer shapes and three
+     engines at 3 iterations, bf16 (the engines held to agree in f32); the
+     FLOP walk (hoig_torch/utils/flops.py) against
+     FlopCounterMode over one bf16 batch-4 shift serving call and training
+     step within 0.1% for the aten part, the launch counters equal to the
+     walk's; the FLOPs of each leg and the share of the bf16 peak that
+     phases 5 and 7's medians imply;
+ 13. print the drivers line, the phase 10 line, the phase 11 line, the
+     phase 12 line, the kernels line, the card line and, last, the result
+     line.
 
 Details (result.json, profile.txt, build.txt: the compiler's report) go to
 --out, by default build/chip_smoke/.
@@ -181,11 +199,6 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 non-tensor
-# FLOP/s, bf16 dense tensor-core FLOP/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_TC_FLOPS = 989e12
 # source of each kernel and the TPU kernel it replaces
 KERNELS = {
     "local_combine_tc": ("hoig_torch/csrc/local_combine.cu", "hoig_tpu/ops/local_combine.py:50"),
@@ -339,7 +352,9 @@ def max_err(a, b) -> float:
 def bound_ms(nbytes: float, flops: float, tc_flops: float = 0.0) -> tuple[float, str]:
     """The larger of bytes over the memory rate and operations over their
     peak: FP32 on the CUDA cores, and bf16 products (`tc_flops`) on the
-    tensor cores."""
+    tensor cores (the H100 SXM data sheet's rates, hoig_torch/utils/flops.py)."""
+    from hoig_torch.utils.flops import PEAK_BF16_TC_FLOPS, PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
+
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (flops / PEAK_FP32_FLOPS + tc_flops / PEAK_BF16_TC_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -372,6 +387,7 @@ def check_local_combine(calls) -> dict:
     import torch
 
     from hoig_torch.ops.local_combine import fwd_staging, local_combine, local_combine_reference
+    from hoig_torch.utils.flops import combine_flops
 
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, f32_ms=0.0, bytes=0.0, flops=0.0, err=0.0, differ=0,
@@ -394,7 +410,7 @@ def check_local_combine(calls) -> dict:
         b, h, w, c = out.shape
         k2 = (2 * radius + 1) ** 2
         nbytes = (src.numel() + b * h * w * k2 + out.numel()) * src.element_size()
-        flops = 2.0 * b * h * w * c * k2
+        flops = combine_flops(b, h, w, c, k2)
         ms = device_ms(lambda: local_combine(src, v, radius))
         f32_ms = device_ms(lambda: local_combine(s32, v32, radius))
         plain = device_ms(lambda: local_combine_reference(src, v, radius), reps=3,
@@ -469,6 +485,7 @@ def check_local_combine_backward(calls) -> dict:
 
     from hoig_torch.ops.local_combine import (local_combine_backward,
                                               local_combine_backward_reference)
+    from hoig_torch.utils.flops import combine_flops
 
     names = ("local_combine_bwd_src_tc", "local_combine_bwd_v_tc")
     tot = {n: dict(ms=0.0, plain_ms=0.0, f32_ms=0.0, bytes=0.0, flops=0.0, err=0.0, calls=0,
@@ -479,7 +496,7 @@ def check_local_combine_backward(calls) -> dict:
         check(g.dtype == torch.bfloat16, f"the training step's backward is {g.dtype}, not bf16")
         b, h, w, c = g.shape
         k2 = (2 * radius + 1) ** 2
-        flops = 2.0 * b * h * w * c * k2
+        flops = combine_flops(b, h, w, c, k2)
         row = dict(shape=[b, h, w, c], radius=radius, dtype=str(g.dtype))
         for cast in (lambda t: t, lambda t: None if t is None else t.float()):
             s_, v_, g_ = cast(src), cast(v), cast(g)
@@ -1056,6 +1073,7 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
     import torch
 
     from hoig_torch.train.environment import resolve_corner_engine
+    from hoig_torch.utils.profiling import profile_window
 
     def config(**remat):
         return train_config(resolve_corner_engine("auto", bf16=True), **remat)
@@ -1097,7 +1115,7 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
     log("[8] profiler window: 2 serving calls and 1 training step, each engine")
     regions = dict(regions, **more_regions(), hoig_train=(
         lambda: counted_step(state, step, batch, True, LAUNCHES_PER_STEP), 1))
-    profile = profile_window(regions, out_dir)
+    profile = profile_window(regions, out_dir, log=log)
     del regions
     train["device_ms"] = profile.get("hoig_train", {}).get("device_ms")
 
@@ -1114,42 +1132,13 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
 
 
 def _fused_cost(name: str, args) -> tuple[float, float, float]:
-    """(bytes, FP32 operations, bf16 tensor-core operations) of one B4 launch
-    on these inputs: each input read once, each output written once (dG is
-    an output of bwd-a-gsrc and an input of dW); the coefficient terms only
-    where nonzero (4 of 49 for acc and dG, 36 of 121 per pixel for phase C
-    and bwd-c). Each 5x5 product is counted over the (H+6) x (W+6) frame of
-    G or dG: the forward needs G only there, and dG is zero outside it, so
-    the gsrc projection and dW pair each of its pixels with the 25 offsets
-    once. Under bf16 the three products run on the tensor cores, the gsrc
-    one and dW as three bf16 passes (dG split into hi + mid + lo): JAX's f32
-    product."""
-    F, K2 = 128, 25
-    if name == "attn_fused_bwd_a_gsrc":
-        g_acc, w0s = args[0], args[5]
-        b, h, w, _ = g_acc.shape
-        c, es = w0s.shape[1], w0s.element_size()
-    else:
-        b, h, w, c = args[0].shape
-        es = args[0].element_size()
-    lowp = es == 2
-    n = b * h * w
-    n_halo = b * (h + 6) * (w + 6)
-    fields = 4 * n * 4
-    conv_halo = 2.0 * n_halo * K2 * c * F
-    if name == "attn_fused_fwd":
-        nbytes = (2 * n * c + K2 * c * F) * es + (2 * n * F + n * K2 + F * K2 + K2) * 4 + fields
-        f32_ops = 2.0 * n * (4 * F + F * K2 + 36 * c)
-        return nbytes, f32_ops + (0.0 if lowp else conv_halo), conv_halo if lowp else 0.0
-    if name == "attn_fused_bwd_c":
-        nbytes = 2 * n * c * es + (n * c + 2 * n * K2) * 4 + fields
-        return nbytes, 2.0 * n * 36 * c * 2, 0.0
-    if name == "attn_fused_bwd_a_gsrc":
-        nbytes = K2 * c * F * es + (n * F + n * c + n_halo * F) * 4 + fields
-        dg_ops = 2.0 * n * 4 * F
-        return (nbytes, dg_ops, 3 * conv_halo) if lowp else (nbytes, dg_ops + conv_halo, 0.0)
-    nbytes = n * c * es + (n_halo * F + K2 * c * F) * 4
-    return (nbytes, 0.0, 3 * conv_halo) if lowp else (nbytes, conv_halo, 0.0)
+    """(bytes, FP32 operations, bf16 tensor-core operations) of one B4
+    launch on these inputs (hoig_torch/utils/flops.py `fused_cost`)."""
+    from hoig_torch.utils.flops import fused_cost
+
+    b, h, w, c = _fused_shape(name, args)
+    es = (args[5] if name == "attn_fused_bwd_a_gsrc" else args[0]).element_size()
+    return fused_cost(name, b, h, w, c, es == 2)
 
 
 def _fused_shape(name: str, args) -> list:
@@ -1677,104 +1666,6 @@ def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
 
     return results, dict(serving=serve, training=train, serving_launches=launches,
                          engines_agree=agree, ragged_rel_err=ragged), regions
-
-
-# device kernel name -> operator class, first match wins
-KERNEL_CLASSES = (
-    ("hand-written kernels", ("combine_fwd_kernel", "combine_bwd_src_kernel", "combine_bwd_v_kernel",
-                              "combine_fwd_tc_kernel", "combine_bwd_src_tc_kernel",
-                              "combine_bwd_v_tc_kernel", "bin_kernel", "raster_kernel", "gather_kernel", "conv5_kernel", "conv5_tc_kernel",
-                              "fwd_pixel_kernel", "bwd_c_kernel", "bwd_c_gattn_kernel",
-                              "fold_kernel", "dg_kernel", "dw_kernel", "dw_tc_kernel",
-                              "slice_sum_kernel")),
-    ("convolutions (cuDNN)", ("xmma", "cudnn", "cutlass", "implicit_gemm", "fprop", "dgrad", "wgrad",
-                              "conv")),
-    ("matrix products (cuBLAS)", ("gemm", "gemv", "cublas")),
-    ("InstanceNorm statistics (var_mean)", ("WelfordOps",)),
-    ("Adam and other foreach ops", ("multi_tensor_apply",)),
-    ("reductions", ("reduce_kernel",)),
-    ("concatenations", ("CatArray",)),
-    ("gathers, scatters, index ops", ("gather", "scatter", "index")),
-    ("casts and copies", ("copy", "Memcpy", "Memset")),
-    ("pooling and softmax", ("max_pool", "softmax")),
-    ("elementwise", ("elementwise",)),
-)
-
-
-def kernel_class(name: str) -> str:
-    return next((label for label, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
-
-
-def hand_written(by_name: dict, n: int) -> dict:
-    """Device ms and launches per call or step of each hand-written kernel,
-    by its function name as a whole word of the profiler's kernel name (so
-    that dw_kernel does not count dw_tc_kernel's launches)."""
-    out = {}
-    for key in KERNEL_CLASSES[0][1]:
-        pat = re.compile(rf"(?<![A-Za-z_]){key}(?![a-z_])")
-        hits = [v for k, v in by_name.items() if pat.search(k)]
-        if hits:
-            out[key] = dict(ms=sum(v[0] for v in hits) / n / 1e3, count=sum(v[1] for v in hits) // n)
-    return out
-
-
-def profile_window(regions: dict, out_dir: Path) -> dict:
-    """Device time by kernel over each region {name: (fn, calls)}, in ONE
-    torch.profiler run (a second profiler in the same process lost its
-    device events on this machine): the regions are told apart by the time
-    ranges of their annotations, each closed after a synchronize."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for region, (fn, n) in regions.items():
-            with record_function(region):
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = list(prof.events())
-    spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
-             if e.name in regions and e.device_type != cuda}
-    # annotations (these regions, Optimizer.step) are mirrored on the device
-    # timeline under the host-side names: they are spans, not kernels
-    host_names = {e.name for e in events if e.device_type != cuda}
-    device = [e for e in events if e.device_type == cuda and e.name not in host_names]
-    (out_dir / "profile.txt").write_text(
-        prof.key_averages().table(sort_by="device_time_total", row_limit=80))
-    out = {}
-    for region, (_, n) in regions.items():
-        if region not in spans:
-            log(f"  profiler: no span for {region} (not measured)")
-            continue
-        lo, hi = spans[region]
-        by_name: dict = {}
-        for e in device:
-            if lo <= e.time_range.start <= hi:
-                acc = by_name.setdefault(e.name, [0.0, 0])
-                acc[0] += e.time_range.elapsed_us()
-                acc[1] += 1
-        if not by_name:
-            log(f"  profiler: no device time reported for {region} (not measured)")
-            continue
-        total = sum(v[0] for v in by_name.values())
-        table = sorted(({"name": k[:90], "ms": v[0] / n / 1e3, "count": v[1] // n}
-                        for k, v in by_name.items()), key=lambda r: -r["ms"])
-        wall = (hi - lo) / n / 1e3
-        log(f"  profiler {region}: device busy {total / n / 1e3:.2f} ms of {wall:.2f} ms wall per "
-            f"{'call' if region.startswith('hoig_serve') else 'step'} ({total / n / 1e3 / wall:.0%}), "
-            f"{sum(v[1] for v in by_name.values()) // n} device kernels; top kernels:")
-        for row in table[:10]:
-            log(f"    {row['ms']:8.3f} ms  x{row['count']:<5d} {row['name']}")
-        classes: dict = {}
-        for k, v in by_name.items():
-            classes[kernel_class(k)] = classes.get(kernel_class(k), 0.0) + v[0] / n / 1e3
-        log("    by operator class: " + "; ".join(
-            f"{label} {ms:.2f} ms ({ms / (total / n / 1e3):.0%})"
-            for label, ms in sorted(classes.items(), key=lambda kv: -kv[1])))
-        out[region] = dict(device_ms=total / n / 1e3, wall_ms=wall, classes=classes,
-                           kernels=table[:60], hand_written=hand_written(by_name, n))
-    return out
 
 
 def _png_size(path: Path) -> tuple[int, int]:
@@ -2846,6 +2737,118 @@ def offpath_phase(env, out_dir: Path, dev: str = "cuda") -> dict:
     return out
 
 
+def _profile_leg(label: str, argv: list, out_dir: Path, counters: dict, kernels: dict) -> dict:
+    """scripts/profile_step_torch.py in a subprocess (a second profiler
+    session in this process would lose its device events): its JSON line,
+    with its launch counters per step held to `counters` and the launches
+    per step of the hand-written kernels in its profile to `kernels`."""
+    log_dir = out_dir / "tools" / label
+    log_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(REPO / "scripts" / "profile_step_torch.py"), *argv],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    (log_dir / "stdout.txt").write_text(proc.stdout + "\n--- stderr\n" + proc.stderr)
+    check(proc.returncode == 0, f"profile_step_torch.py {' '.join(argv)} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    res = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+    res["seconds"] = time.perf_counter() - t0
+    check(res["launches_per_step"] == counters,
+          f"{label}: launch counters per step {res['launches_per_step']} != {counters}")
+    check(res["device_busy_ms"] is not None, f"{label}: the profiler reported no device time")
+    got = {k: v["count"] for k, v in res["hand_written"].items()}
+    check(got == kernels, f"{label}: hand-written kernels per step in the profile {got} != {kernels}")
+    unit = "step" if "train" in label else "call"
+    log(f"  profile_step_torch {' '.join(argv)} ({res['seconds']:.1f} s): device busy "
+        f"{res['device_busy_ms']:.2f} ms of {res['wall_ms']:.2f} ms wall per {unit} "
+        f"({res['busy_share']:.1%}), {res['kernels_per_step']} device kernels, peak "
+        f"{res['peak_mem_mib']:.0f} MiB; remat {res['remat']}; launches {res['launches_per_step']}")
+    log("    by operator class: " + "; ".join(
+        f"{k} {v:.2f}" for k, v in sorted(res["classes"].items(), key=lambda kv: -kv[1])))
+    log("    top kernels: " + "; ".join(f"{r['ms']:.3f} x{r['count']} {r['name'][:48]}"
+                                      for r in res["top_kernels"][:8]))
+    log("    10 longest idle gaps (ms, the host op running when it opened / the next to begin): "
+        + "; ".join(f"{g['ms']:.3f} {(g['host'] or ['-'])[-1][:32]} / {str(g['next'])[:32]}"
+                    for g in res["idle_gaps"]))
+    return res
+
+
+def tools_phase(env, out_dir: Path, serve: dict, train: dict) -> dict:
+    """Phase 12 (see the module docstring). Returns the phase's numbers."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import attn_ab_torch
+    import flops_ceiling_torch
+    from profile_step_torch import train_config
+
+    from hoig_torch.ops.attn_fused import F, HALO, _tc_splits
+    from hoig_torch.utils import flops
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cond = {"rasterizer": 1, "table_gather": 2}
+    b2b3 = {"bin_kernel": 1, "raster_kernel": 1, "gather_kernel": 2}
+    # B4-fwd's product adds its split-K partials in a second launch where it splits
+    split = sum(_tc_splits(BATCH, h + 2 * HALO, h + 2 * HALO, F) > 1
+                for h, _ in flops.attn_layers(IMAGE, 64, 6))
+    out = dict(profile={
+        "fp32_b8_gather_train": _profile_leg(
+            "fp32_b8_gather_train", ["--dtype", "fp32", "--engine", "gather", "--batch", "8",
+                                     "--steps", "2", "--warmup", "1"], out_dir, cond, b2b3),
+        "bf16_b4_fused_serve": _profile_leg(
+            "bf16_b4_fused_serve", ["--dtype", "bf16", "--engine", "pallas", "--leg", "fwd",
+                                    "--batch", str(BATCH), "--steps", "2", "--warmup", "2"],
+            out_dir, dict(cond, attn_fused_fwd_tc=9),
+            dict(b2b3, conv5_tc_kernel=9, fwd_pixel_kernel=9, slice_sum_kernel=split))})
+
+    rows = attn_ab_torch.run(BATCH, "bf16", ("shift", "gather", "pallas"), 3, "cuda", IMAGE, 64)
+    log("  attn_ab_torch (3 iterations; device ms queued behind a GPU sleep, * the stream's span "
+        "where an iteration outruns the launch queue / host ms): " + "; ".join(
+            f"{r['shape']} {r['engine']} {r['dtype']} fwd {r['fwd_ms']:.3f}"
+            f"{'' if r['fwd_queued'] else '*'} / {r['fwd_host_ms']:.2f}, fwd+bwd "
+            f"{r['fwd_bwd_ms']:.3f}{'' if r['fwd_bwd_queued'] else '*'} / {r['fwd_bwd_host_ms']:.2f}"
+            for r in rows))
+    out["attn_ab"] = rows
+
+    tcfg = train_config("bf16", "shift")
+    check_rows = flops_ceiling_torch.check_leg(tcfg, BATCH, torch.device("cuda"), env)
+    for leg, row in check_rows.items():
+        check(row["rel_diff"] <= 1e-3, f"FLOP walk vs FlopCounterMode ({leg}): {row}")
+    out["flop_check"] = check_rows
+    # FLOPs per leg and the share of the bf16 peak the measured medians imply
+    legs = {}
+    for name, cfg, leg, ms in (
+            ("serving call, bf16 shift (phase 5)", tcfg, "serve", serve["call_ms"]),
+            ("training step, bf16 shift, remat off (phase 7)",
+             dataclasses.replace(tcfg, remat=False), "train", train["step_ms"]),
+            ("training step, bf16 shift, bf16 remat defaults (phase 7)", tcfg, "train",
+             train["remat"]["step_ms"])):
+        tot = flops.leg_flops(cfg, BATCH, leg)["total"]
+        legs[name] = dict(model=tot["model"], executed=tot["executed"], ms=ms,
+                          bf16_peak_share=tot["executed"] / (ms / 1e3) / flops.PEAK_BF16_TC_FLOPS)
+    f32 = out["profile"]["fp32_b8_gather_train"]
+    tot = flops.leg_flops(train_config("fp32", "gather"), 8, "train")["total"]
+    legs["training step, fp32 gather, batch 8, full remat (profiled wall)"] = dict(
+        model=tot["model"], executed=tot["executed"], ms=f32["wall_ms"],
+        bf16_peak_share=tot["executed"] / (f32["wall_ms"] / 1e3) / flops.PEAK_BF16_TC_FLOPS,
+        fp32_peak_share=tot["executed"] / (f32["wall_ms"] / 1e3) / flops.PEAK_FP32_FLOPS)
+    out["legs"] = legs
+    for name, v in legs.items():
+        log(f"  {name}: {v['model'] / 1e12:.3f} TFLOP model, {v['executed'] / 1e12:.3f} executed, "
+            f"{v['ms']:.2f} ms: {v['bf16_peak_share']:.2%} of the bf16 peak"
+            + (f", {v['fp32_peak_share']:.2%} of FP32's" if "fp32_peak_share" in v else ""))
+    for leg, row in check_rows.items():
+        log(f"  FLOP walk vs FlopCounterMode, bf16 shift {leg} at batch {BATCH}: "
+            f"{row['aten_counted'] / 1e12:.4f} against {row['aten_walk'] / 1e12:.4f} TFLOP aten "
+            f"(relative difference {row['rel_diff']:.2g}); launches {row['launches']} as the "
+            f"walk's; hand-written kernels {row['kernel_flops'] / 1e9:.1f} GFLOP")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
@@ -3011,7 +3014,12 @@ def main() -> int:
         f"resume from a JAX run's trees; card {card}")
     offpath = offpath_phase(env, out_dir)
 
-    # 12. report
+    # 12. the measuring tools
+    log(f"[12] the measuring tools: profile_step_torch (fp32 batch 8 gather step; bf16 fused "
+        f"serving call), attn_ab_torch ({IMAGE} px, batch {BATCH}), the FLOP walk; card {card}")
+    tools = tools_phase(env, out_dir, serve, train)
+
+    # 13. report
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -3033,11 +3041,13 @@ def main() -> int:
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                   kernels=results, cpu_compare=cpu_cmp, serving=serve, training=train,
                   fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics,
-                  offpath=offpath)
+                  offpath=offpath, tools=tools)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"drivers": drivers}, default=str))
     log(json.dumps({"ddp": ddp, "metrics": metrics}, default=str))
     log(json.dumps({"offpath": offpath, "card": card}, default=str))
+    log(json.dumps({"tools": {k: tools[k] for k in ("legs", "flop_check", "seconds")},
+                    "card": card}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

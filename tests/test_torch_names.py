@@ -6,7 +6,12 @@ name must be defined where the JAX package defines it.
 
 The exceptions below are the JAX package's TPU, XLA and flax machinery. Each
 names the port's counterpart, which must exist, or says why there is none;
-an exception that no longer excuses anything fails the test."""
+an exception that no longer excuses anything fails the test.
+
+The JAX package's scripts (the Python files at the root and under scripts/
+that are not the port's: `*_torch.py` and chip_smoke.py) are matched the
+same way, by file: each has its `_torch` counterpart beside it or a named
+exception."""
 
 import ast
 from pathlib import Path
@@ -115,3 +120,37 @@ def test_the_scan_sees_what_it_should():
                       ("geometry/neural_renderer_api.py", "Renderer")):
         assert name in _defined(JAX_PKG / rel) and name in _defined(PORT_PKG / rel), (rel, name)
     assert "grid_sample" not in _defined(PORT_PKG / "geometry/renderer.py")  # imported only
+
+
+# JAX package scripts -> the port's file that takes their place (None: none)
+SCRIPT_EXCEPTIONS = {
+    # the JAX package's benchmark; the port's is a benchmark change's work
+    # (ROADMAP A1)
+    "bench.py": None,
+    # drives the JAX package on the TPU (a dry run on a virtual mesh); the
+    # smoke script drives the port on the card
+    "__graft_entry__.py": "chip_smoke.py",
+    # turns the torch assets into .npz for the JAX loaders; the port reads
+    # the .pth files themselves (ROADMAP A1)
+    "scripts/convert_weights.py": None,
+}
+
+
+def _jax_scripts():
+    files = sorted(ROOT.glob("*.py")) + sorted((ROOT / "scripts").glob("*.py"))
+    return [str(f.relative_to(ROOT)) for f in files
+            if not f.stem.endswith("_torch") and f.name != "chip_smoke.py"]
+
+
+def test_every_jax_script_has_its_counterpart():
+    scripts = _jax_scripts()
+    assert {"train.py", "eval.py", "bench.py", "scripts/profile_step.py", "scripts/attn_ab.py",
+            "scripts/flops_ceiling.py", "scripts/parity_eval.py"} <= set(scripts)
+    for rel in scripts:
+        twin = ROOT / rel.replace(".py", "_torch.py")
+        if rel in SCRIPT_EXCEPTIONS:
+            assert not twin.exists(), f"{rel} has a counterpart now: drop its exception"
+            if SCRIPT_EXCEPTIONS[rel] is not None:
+                assert (ROOT / SCRIPT_EXCEPTIONS[rel]).exists(), SCRIPT_EXCEPTIONS[rel]
+        else:
+            assert twin.exists(), f"{rel} has no counterpart {twin.relative_to(ROOT)}"

@@ -143,12 +143,14 @@ def _imported_roots(path: Path) -> set:
 def test_port_imports_no_jax():
     files = sorted((REPO / "hoig_torch").rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "train_torch.py", "eval_torch.py",
-                                 "scripts/parity_eval_torch.py")]
+                                 "scripts/parity_eval_torch.py", "scripts/profile_step_torch.py",
+                                 "scripts/attn_ab_torch.py", "scripts/flops_ceiling_torch.py")]
     assert len(files) > 30
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"hoig_torch/metrics/{m}.py" for m in ("fid", "inception", "lpips", "ssim",
                                                    "image_loader")} <= scanned
-    assert {"hoig_torch/parallel/mesh.py", "hoig_torch/train/flax_ckpt.py"} <= scanned
+    assert {"hoig_torch/parallel/mesh.py", "hoig_torch/train/flax_ckpt.py",
+            "hoig_torch/utils/flops.py"} <= scanned
     for f in files:
         bad = _imported_roots(f) & _FORBIDDEN
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
