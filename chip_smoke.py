@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving path and its GAN training step on one
 NVIDIA GPU, with the shift attention engine and with the fused one, then the
 port's drivers, train_torch.py and eval_torch.py, its data-parallel step, the
-metric battery and the modules off the main path.
+metric battery, the modules off the main path, the measuring tools and the
+drivers over real-layout data sets without cv2.
 
     python3 chip_smoke.py [--out DIR]   # from the root of a checkout, one card
 
@@ -175,9 +176,27 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      step within 0.1% for the aten part, the launch counters equal to the
      walk's; the FLOPs of each leg and the share of the bf16 peak that
      phases 5 and 7's medians imply;
- 13. print the drivers line, the phase 10 line, the phase 11 line, the
-     phase 12 line, the kernels line, the card line and, last, the result
-     line.
+ 13. real-layout data without cv2 (hoig_torch/runtime's native reader):
+     (a) the committed fixtures (tests/torch_fixtures/images) read and the
+     data path's resizes made, each array held to the SHA-256 that cv2 gave
+     when the fixture was made, with host ms per 640x480 JPEG (4:2:0; 4:4:4
+     with restarts), mask PNG and resize; (b) an HO3Dv3 tree (2 videos x 4
+     frames copied from the fixtures, masks at 320x240 and 640x480) beside
+     a real-asset layout (synthetic MANO pickle, hand UV atlas, two
+     objects, the second with the fixture texture_map.png), and
+     train_torch.py --dataset_mode hov3 over it at full width (256 px,
+     batch 4, bf16, seeded random VGG19 weights from an .npz) for 3 steps
+     in a subprocess where cv2 cannot be imported: exit 0, the loader alone
+     over 3 batches, 18 / 18 / 9 / 1 / 2 launches per step as in phase 7,
+     finite errors, the textured object's table bit-equal to the fixture
+     texture resized as cv2 does; loader, step and iteration ms beside
+     phase 9's; (c) a DexYCB tree (2 nested videos, the 21 YCB objects, the
+     second textured) and eval_torch.py --dataset_mode ycb over one batch
+     of 4 pairs likewise: 18 / 1 / 2 launches, 12 PNGs of 256x256, the
+     batch ms beside phase 9's;
+ 14. print the drivers line, the phase 10 line, the phase 11 line, the
+     phase 12 line, the phase 13 line, the kernels line, the card line and,
+     last, the result line.
 
 Details (result.json, profile.txt, build.txt: the compiler's report) go to
 --out, by default build/chip_smoke/.
@@ -1703,10 +1722,12 @@ class DriverProbe:
     def timed(self, fn):
         import torch
 
-        torch.cuda.synchronize()
+        # (no card: phase 13's CPU rehearsal)
+        sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+        sync()
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync()
         return out, time.perf_counter() - t0
 
     @contextlib.contextmanager
@@ -2849,6 +2870,383 @@ def tools_phase(env, out_dir: Path, serve: dict, train: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. real-layout data without cv2: the native reader on the committed
+# fixtures, train_torch.py over an HO3Dv3 tree and eval_torch.py over a
+# DexYCB tree, in subprocesses where cv2 cannot be imported (the port's
+# modules import no cv2, PIL or torchvision: tests/test_torch_images.py)
+# ---------------------------------------------------------------------------
+FIXTURES = REPO / "tests" / "torch_fixtures" / "images"
+IMAGE_LIBRARIES = ("cv2", "PIL", "torchvision")
+# the drivers' network width in phase 13 (phase 9's)
+REAL_NET = ["--conv_dim", "64", "--repeat_num", "6"]
+# a subprocess of phase 13: cv2 made unimportable first
+CHILD = ("import sys; sys.modules['cv2'] = None; sys.path.insert(0, {repo!r}); "
+         "import chip_smoke; sys.exit(chip_smoke.real_data_child(sys.argv[1]))")
+
+
+@contextlib.contextmanager
+def cv2_blocked():
+    """cv2 unimportable inside the block (the rest of sys.modules untouched:
+    mock.patch.dict would also drop the modules imported inside it)."""
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def _sha256(b) -> str:
+    import hashlib
+
+    return hashlib.sha256(bytes(b)).hexdigest()
+
+
+def decode_fixtures() -> dict:
+    """Phase 13a: every committed fixture and the data path's resizes held to
+    the SHA-256 that cv2 gave when they were made; host ms per read."""
+    from hoig_torch.runtime import imread, resize_linear_u8
+
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    for name, entry in manifest["files"].items():
+        path = FIXTURES / name
+        check(_sha256(path.read_bytes()) == entry["sha256"], f"fixture {name} changed")
+        img = imread(path)
+        check(list(img.shape) == entry["shape"] and _sha256(img.tobytes()) == entry[
+            "imread_sha256"], f"{name}: the native reader differs from cv2.imread's array")
+    for case in manifest["resizes"]:
+        img = resize_linear_u8(imread(FIXTURES / case["source"]), case["dsize"])
+        check(_sha256(img.tobytes()) == case["sha256"],
+              f"{case['source']} resized to {case['dsize']} differs from cv2.resize's array")
+    mask, tex = imread(FIXTURES / "mask_320x240_3ch.png"), imread(FIXTURES / "texture_map.png")
+    calls = {
+        "jpeg_420_640x480": lambda: imread(FIXTURES / "frame_420_q95.jpg"),
+        "jpeg_444_rst_640x480": lambda: imread(FIXTURES / "frame_444_q75_rst.jpg"),
+        "png_mask_640x480x3": lambda: imread(FIXTURES / "mask_640x480_3ch.png"),
+        "png_mask_320x240x3": lambda: imread(FIXTURES / "mask_320x240_3ch.png"),
+        "resize_mask_320x240_to_640x480": lambda: resize_linear_u8(mask, (640, 480)),
+        "resize_texture_512_to_256": lambda: resize_linear_u8(tex, (256, 256)),
+    }
+    ms = {k: _host_ms(fn, "cpu", reps=20) for k, fn in calls.items()}  # host work only
+    return dict(files=len(manifest["files"]), resizes=len(manifest["resizes"]),
+                made_by=manifest["versions"], host_ms=ms)
+
+
+def _write_assets(root: Path, objects: list, obj_file, texture: str) -> list:
+    """A real-data asset layout (tests/test_torch_data.py's _real_asset_tree):
+    a synthetic MANO pickle, the hand UV atlas, the semantics, the objects
+    (synthetic meshes), the second with the fixture texture under `texture`.
+    Returns the asset flags."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from hoig_torch.data.synthetic import (synthetic_semantics, write_hand_uv_obj,
+                                           write_synthetic_obj)
+    from hoig_torch.geometry.mano import MANOModel
+
+    m = MANOModel.synthetic(0)
+    kintree = np.stack([np.where(m.parents < 0, 2**32 - 1, m.parents), np.arange(16)])
+    (root / "mano").mkdir(parents=True)
+    with open(root / "mano" / "MANO_RIGHT.pkl", "wb") as fp:
+        pickle.dump(dict(v_template=m.v_template, shapedirs=m.shapedirs, posedirs=m.posedirs,
+                         J_regressor=m.j_regressor, weights=m.lbs_weights,
+                         hands_components=m.hands_components, hands_mean=m.hands_mean,
+                         f=m.faces, kintree_table=kintree), fp)
+    write_hand_uv_obj(str(root / "hand_uv.obj"), m)
+    with open(root / "sem.pkl", "wb") as fp:
+        pickle.dump(synthetic_semantics(), fp)
+    for i, name in enumerate(objects):
+        path = obj_file(name)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_synthetic_obj(str(path), seed=i)
+    shutil.copy(FIXTURES / "texture_map.png", obj_file(objects[1]).parent / texture)
+    return ["--mano_model", str(root / "mano"), "--uv_mapping", str(root / "hand_uv.obj"),
+            "--sem_hand", str(root / "sem.pkl")]
+
+
+# (fixture frame, fixture mask) of each HO3D frame: both JPEG kinds, masks at
+# half and full size, three channels and one
+HOV3_FRAMES = [("frame_420_q95.jpg", "mask_320x240_3ch.png"),
+               ("frame_444_q75_rst.jpg", "mask_640x480_3ch.png"),
+               ("frame_444_q75_rst.jpg", "mask_320x240_1ch.png"),
+               ("frame_420_q95.jpg", "mask_640x480_1ch.png")]
+
+
+def hov3_tree(root: Path) -> list:
+    """An HO3Dv3 tree (tests/test_real_datasets.py's layout: meta pickles,
+    box and split pickles) of 2 videos x 4 frames, frames and masks copied
+    from the fixtures, cameras at HO3D's 640x480 intrinsics; the real-asset
+    layout beside it with 003_cracker_box plain and 004_sugar_box textured.
+    Returns the dataset and asset flags."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    data = root / "data"
+    rng = np.random.RandomState(13)
+    names = ["003_cracker_box", "004_sugar_box"]  # OBJNAMES 0, 1; sorted, as the tables list them
+    flags = _write_assets(root / "assets", names, lambda n: root / "obj" / n / f"{n}.obj",
+                          "texture_map.png")
+    vids = {"ABF10_0": names[0], "GPMF11_0": names[1]}
+    frames = [f"{i:04d}.jpg" for i in range(len(HOV3_FRAMES))]
+    for vid, obj_name in vids.items():
+        seq = data / "images" / "train" / vid.split("_")[0]
+        for sub in ("rgb", "mask", "meta"):
+            (seq / sub).mkdir(parents=True)
+        for i, (frame, mask) in enumerate(HOV3_FRAMES):
+            shutil.copy(FIXTURES / frame, seq / "rgb" / frames[i])
+            shutil.copy(FIXTURES / mask, seq / "mask" / f"{i:05d}.png")
+            anno = {"objName": obj_name,
+                    "objRot": (rng.randn(3, 1) * 0.3).astype(np.float32),
+                    "objTrans": (rng.randn(3) * 0.02 + [0, 0, 0.55]).astype(np.float32),
+                    "camMat": np.array([[614.0, 0, 320], [0, 614.0, 240], [0, 0, 1]], np.float32),
+                    "handPose": (rng.randn(48) * 0.1).astype(np.float32),
+                    "handBeta": (rng.randn(10) * 0.3).astype(np.float32),
+                    "handTrans": np.array([0, 0, 0.5], np.float32)}
+            with open(seq / "meta" / f"{i:04d}.pkl", "wb") as fp:
+                pickle.dump(anno, fp)
+    (data / "params").mkdir()
+    split = {vid: frames for vid in vids}
+    for fname, payload in [("HOv3-CR_bbx.pkl", {v: [160.0, 80.0, 320.0, 320.0] for v in vids}),
+                           ("HOv3-CR_train_new.pkl", split), ("HOv3-CR_test_new.pkl", split)]:
+        with open(data / "params" / fname, "wb") as fp:
+            pickle.dump(payload, fp)
+    return ["--dataset_mode", "hov3", "--data_dir", str(data), "--params_dir", "params",
+            "--images_dir", "images", "--obj_dir", str(root / "obj"), *flags]
+
+
+YCB_VIDEOS = ["20200709-subject-01/20200709_141754/932122060861",
+              "20200813-subject-02/20200813_145653/932122060861"]
+
+
+def ycb_tree(root: Path) -> tuple[list, Path]:
+    """A DexYCB tree (tests/test_real_datasets.py's layout: labels_*.npz, the
+    video info, box and split pickles) of 2 nested videos x 2 frames copied
+    from the fixture JPEGs, the 21 YCB objects (synthetic meshes, the second
+    textured) and assets/eval_pairs.pkl of BATCH pairs (one eval batch)
+    under the run directory the eval driver starts in. Returns the dataset
+    and asset flags and the run directory."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from hoig_torch.data.dataset_base import rodrigues
+    from hoig_torch.data.ycb_dataset import OBJNAMES
+
+    data = root / "data"
+    rng = np.random.RandomState(14)
+    flags = _write_assets(root / "assets", OBJNAMES,
+                          lambda n: data / "models" / n / "textured_pre.obj",
+                          "texture_map_resize.png")
+    bbx, info = {}, {}
+    for k, vid in enumerate(YCB_VIDEOS):
+        img_dir = data / "images" / vid
+        img_dir.mkdir(parents=True)
+        bbx[vid] = [160.0, 80.0, 480.0, 400.0]  # x0, y0, x1, y1
+        info[vid] = {"intrinsics": {"fx": 614.0, "fy": 614.0, "ppx": 320.0, "ppy": 240.0},
+                     "ycb_ids": [14, k + 1],  # the grasped object second: OBJNAMES[k]
+                     "ycb_grasp_ind": 1, "mano_betas": (rng.randn(10) * 0.3).tolist()}
+        for f, frame in enumerate(("frame_420_q95.jpg", "frame_444_q75_rst.jpg")):
+            shutil.copy(FIXTURES / frame, img_dir / f"color_{f:06d}.jpg")
+            pose_y = np.zeros((2, 3, 4), np.float32)
+            for o in range(2):
+                pose_y[o, :, :3] = rodrigues((rng.randn(3) * 0.3).astype(np.float32))
+                pose_y[o, :, 3] = rng.randn(3) * 0.02 + [0, 0, 0.55]
+            np.savez(img_dir / f"labels_{f:06d}.npz", pose_y=pose_y,
+                     pose_m=(rng.randn(1, 51) * 0.1).astype(np.float32))
+    (data / "params").mkdir()
+    split = {vid: [0, 1] for vid in YCB_VIDEOS}
+    for fname, payload in [("DexYCB-bbx.pkl", bbx), ("valid_video_info.pkl", info),
+                           ("DexYCB_train.pkl", split), ("DexYCB_test.pkl", split)]:
+        with open(data / "params" / fname, "wb") as fp:
+            pickle.dump(payload, fp)
+    run_dir = root / "run"
+    (run_dir / "assets").mkdir(parents=True)
+    va, vb = YCB_VIDEOS
+    pairs = [(f"{va}/0", f"{vb}/1"), (f"{vb}/0", f"{va}/1"), (f"{va}/1", f"{va}/0"),
+             (f"{vb}/1", f"{vb}/0")]
+    with open(run_dir / "assets" / "eval_pairs.pkl", "wb") as fp:
+        pickle.dump([pairs[i % len(pairs)] for i in range(BATCH)], fp)
+    return ["--dataset_mode", "ycb", "--data_dir", str(data), "--params_dir", "params",
+            "--images_dir", "images", "--obj_dir", str(data / "models"), *flags], run_dir
+
+
+def real_data_child(spec_file: str) -> int:
+    """Phase 13's driver run, in a subprocess started by CHILD (cv2
+    unimportable): spec "train" times the loader alone over the
+    training split, then runs train_torch.Train; spec "eval" runs
+    eval_torch.main; both under a DriverProbe. Writes the numbers to the
+    spec's result file."""
+    import numpy as np
+
+    import eval_torch
+    import train_torch
+    from hoig_torch.data.loader import CustomDatasetDataLoader
+    from hoig_torch.options.train_options import TrainOptions
+
+    spec = json.loads(Path(spec_file).read_text())
+    args, out = spec["args"], {}
+    if spec["driver"] == "train":
+        opt = TrainOptions().parse(args)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in CustomDatasetDataLoader(opt, is_for_train=True).load_data())
+        out.update(loader_batches=n, loader_ms_per_batch=(time.perf_counter() - t0) * 1e3 / n)
+        with DriverProbe().attached() as probe:
+            run = train_torch.Train(args)
+        tex = run.model._env["tables_np"].obj_tex
+        starts = [t for t, is_train in probe.inputs if is_train]
+        out.update(steps=probe.steps, forwards=probe.forwards,
+                   iterations_ms=[(b - a) * 1e3 for a, b in zip(starts, starts[1:])],
+                   errors=run.model.get_current_errors(),
+                   obj_tex_sha256=[_sha256(np.ascontiguousarray(t).tobytes()) for t in tex],
+                   obj_tex_absmax=[float(np.abs(t).max()) for t in tex])
+    else:
+        with DriverProbe().attached() as probe:
+            eval_torch.main(args)
+            t_end = time.perf_counter()
+        out.update(forwards=probe.forwards, batches=_eval_batches(probe, t_end))
+    Path(spec["result"]).write_text(json.dumps(out))
+    return 0
+
+
+def _run_child(label: str, spec: dict, cwd: Path, root: Path, timeout: int) -> dict:
+    import os
+    import signal
+
+    spec_file, log_path = root / f"{label}_spec.json", root / f"{label}.log"
+    spec["result"] = str(root / f"{label}_result.json")
+    spec_file.write_text(json.dumps(spec))
+    cmd = [sys.executable, "-c", CHILD.format(repo=str(REPO)), str(spec_file)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as fp:
+        proc = subprocess.Popen(cmd, cwd=cwd, stdout=fp, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"phase 13 {label} exited {rc}:\n{log_path.read_text()[-3000:]}")
+    return dict(json.loads(Path(spec["result"]).read_text()), wall_s=wall)
+
+
+def real_data_phase(out_dir: Path, drivers: dict, dev: str = "cuda") -> dict:
+    """Phase 13: the fixtures through the native reader, then train_torch.py
+    over an HO3Dv3 tree and eval_torch.py over a DexYCB tree, full width
+    (REAL_NET), IMAGE px, batch BATCH, bf16, each in a subprocess where cv2
+    cannot be imported. Returns the phase's numbers."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    from hoig_torch.models.vgg import init_vgg
+    from hoig_torch.runtime import imread, resize_linear_u8
+
+    t_phase = time.perf_counter()
+    root = (out_dir / "real_data").resolve()  # the eval driver runs in its own directory
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {"image_libraries_installed": [m for m in IMAGE_LIBRARIES
+                                         if importlib.util.find_spec(m) is not None]}
+    if "cv2" in out["image_libraries_installed"]:
+        import cv2  # its version, for the record; the phase never calls it
+
+        out["cv2_version"] = cv2.__version__
+    try:
+        with cv2_blocked():
+            out["decode"] = decode_fixtures()
+            hov3_args = hov3_tree(root / "hov3")
+            ycb_args, ycb_run = ycb_tree(root / "ycb")
+        ms = out["decode"]["host_ms"]
+        log(f"  (a) {out['decode']['files']} fixtures and {out['decode']['resizes']} resizes "
+            f"bit-equal to cv2 {out['decode']['made_by']['cv2']} (libjpeg-turbo "
+            f"{out['decode']['made_by']['libjpeg-turbo']}, libpng "
+            f"{out['decode']['made_by']['libpng']}); image libraries installed here: "
+            f"{out['image_libraries_installed'] or 'none'} (cv2 {out.get('cv2_version')}), "
+            f"blocked in the phase; host ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+
+        # the perceptual loss on seeded random VGG19 weights passed as a file
+        # (real-data training refuses random VGG features otherwise)
+        vgg = root / "vgg19_seed0.npz"
+        np.savez(vgg, **{k: v.numpy() for k, v in init_vgg(seed=0, device="cpu")
+                         .state_dict().items()})
+        common = ["--image_size", str(IMAGE), "--batch_size", str(BATCH), *REAL_NET, "--bf16",
+                  "--use_spade", "--device", dev]
+        train = _run_child("train", dict(driver="train", args=hov3_args + common + [
+            "--use_vgg", "--vgg_weights", str(vgg), "--mask_bce", "--num_repeats",
+            str(3 * BATCH // 2), "--nepochs_no_decay", "1", "--nepochs_decay", "0",
+            "--checkpoints_dir", str(root / "checkpoints"), "--name", "hov3"]), REPO, root, 600)
+        check(train["loader_batches"] == 3, f"the HO3D loader gave {train['loader_batches']} "
+              f"batches, not 3")
+        check(len(train["steps"]) == 3, f"hov3 train_torch ran {len(train['steps'])} steps")
+        check(all(math.isfinite(v) for v in train["errors"].values()),
+              f"hov3 train_torch: non-finite errors {train['errors']}")
+        if dev == "cuda":
+            for i, (_, launches) in enumerate(train["steps"]):
+                check(launches == LAUNCHES_PER_STEP,
+                      f"hov3 step {i + 1} launches {launches} != {LAUNCHES_PER_STEP}")
+        # the textured object's table: the fixture texture resized to IMAGE
+        # as cv2 does, the plain one zeros
+        tex = resize_linear_u8(imread(FIXTURES / "texture_map.png")[:, :, ::-1], (IMAGE, IMAGE))
+        want = (tex.astype(np.float32) / 255.0 * 2.0 - 1.0).transpose(2, 0, 1)
+        check(train["obj_tex_absmax"][0] == 0 and train["obj_tex_absmax"][1] > 0
+              and train["obj_tex_sha256"][1] == _sha256(np.ascontiguousarray(want).tobytes()),
+              f"hov3 obj_tex: |max| {train['obj_tex_absmax']}, not the fixture texture")
+        steps = [s for s, _ in train["steps"]]
+        log(f"  (b) train_torch.py --dataset_mode hov3 (2 videos x 4 frames, 3 steps): exit 0 "
+            f"after {train['wall_s']:.1f} s; loader {train['loader_ms_per_batch']:.2f} ms per "
+            f"batch (phase 9's synthetic loader {drivers['loader_ms_per_batch']:.2f}); steps "
+            f"{', '.join(f'{v:.1f}' for v in steps)} ms (phase 9's "
+            f"{', '.join(f'{v:.1f}' for v in drivers['train_step_ms_all'])}); iterations "
+            f"{', '.join(f'{v:.1f}' for v in train['iterations_ms'])} ms (phase 9's "
+            f"{', '.join(f'{v:.1f}' for v in drivers['train_iteration_ms'])}); launches per "
+            f"step {train['steps'][0][1]}; the textured object's table bit-equal to cv2's resize")
+        shutil.rmtree(root / "checkpoints", ignore_errors=True)  # about 2.3 GB
+
+        dest = root / "eval_out"
+        ev = _run_child("eval", dict(driver="eval", args=ycb_args + common + [
+            "--num_repeats", "1", "--checkpoints_dir", str(root / "ycb_ck"), "--name", "ycb",
+            "--output_dir", str(dest)]), ycb_run, root, 300)
+        check(len(ev["forwards"]) == 1, f"ycb eval_torch ran {len(ev['forwards'])} batches")
+        if dev == "cuda":
+            check(ev["forwards"][0][2] == LAUNCHES_PER_CALL,
+                  f"ycb eval batch launches {ev['forwards'][0][2]} != {LAUNCHES_PER_CALL}")
+        pngs = sorted(dest.glob("*/*.png"))
+        check(len(pngs) == 3 * BATCH and all(_png_size(p) == (IMAGE, IMAGE) for p in pngs),
+              f"ycb eval_torch wrote {len(pngs)} PNGs, not {3 * BATCH} of {IMAGE}x{IMAGE}")
+        log(f"  (c) eval_torch.py --dataset_mode ycb (21 objects, {BATCH} pairs, 1 batch): exit 0 "
+            f"after {ev['wall_s']:.1f} s; {len(pngs)} PNGs of {IMAGE}x{IMAGE}; batch "
+            f"{ev['batches'][0][0]:.1f} ms, {ev['batches'][0][1]:.1f} of it PNG writes (phase "
+            f"9's eval batches {', '.join(f'{v:.1f}' for v in drivers['eval_batch_ms'])}); "
+            f"launches {ev['forwards'][0][2]}")
+        out.update(train={k: v for k, v in train.items() if k != "forwards"},
+                   eval=ev, phase9=dict(loader_ms_per_batch=drivers["loader_ms_per_batch"],
+                                        train_step_ms=drivers["train_step_ms_all"],
+                                        train_iteration_ms=drivers["train_iteration_ms"],
+                                        eval_batch_ms=drivers["eval_batch_ms"]))
+    finally:
+        # the trees, the 80 MB of VGG weights and a 2.3 GB save; the logs,
+        # results and eval PNGs stay
+        for path in ("checkpoints", "ycb_ck", "hov3", "ycb"):
+            shutil.rmtree(root / path, ignore_errors=True)
+        (root / "vgg19_seed0.npz").unlink(missing_ok=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
@@ -3019,7 +3417,13 @@ def main() -> int:
         f"serving call), attn_ab_torch ({IMAGE} px, batch {BATCH}), the FLOP walk; card {card}")
     tools = tools_phase(env, out_dir, serve, train)
 
-    # 13. report
+    # 13. real-layout data without cv2
+    log(f"[13] real-layout data without cv2: the native reader on the committed fixtures, "
+        f"train_torch.py --dataset_mode hov3 (3 steps) and eval_torch.py --dataset_mode ycb (1 "
+        f"batch), {IMAGE} px, batch {BATCH}, bf16, conv_dim 64, repeat 6; card {card}")
+    real_data = real_data_phase(out_dir, drivers)
+
+    # 14. report
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -3041,13 +3445,14 @@ def main() -> int:
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                   kernels=results, cpu_compare=cpu_cmp, serving=serve, training=train,
                   fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics,
-                  offpath=offpath, tools=tools)
+                  offpath=offpath, tools=tools, real_data=real_data)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"drivers": drivers}, default=str))
     log(json.dumps({"ddp": ddp, "metrics": metrics}, default=str))
     log(json.dumps({"offpath": offpath, "card": card}, default=str))
     log(json.dumps({"tools": {k: tools[k] for k in ("legs", "flop_check", "seconds")},
                     "card": card}, default=str))
+    log(json.dumps({"real_data": real_data, "card": card}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,7 @@ from hoig_torch.data.dataset_base import (
     load_pickle_data,
     normalize_image,
 )
+from hoig_torch.runtime import imread
 
 
 class InterHandEvalDataset(DatasetBase):
@@ -65,9 +66,7 @@ class InterHandEvalDataset(DatasetBase):
                 "pathA": src, "pathB": tsf}
 
     def _get_sample(self, capture_id, cam_id, action_id, frame_id):
-        import cv2
-
-        image = cv2.imread(
+        image = imread(
             os.path.join(self.pic_dir, capture_id, cam_id, action_id, frame_id)
         )
         bbox = self.bbx_params[os.path.join(capture_id, cam_id, action_id)]

@@ -18,8 +18,10 @@ from hoig_torch.data.dataset_base import (
     augmentation,
     load_pickle_data,
     normalize_image,
+    rodrigues,
 )
 from hoig_torch.geometry.mesh import load_obj
+from hoig_torch.runtime import imread, resize_linear_u8
 
 OBJNAMES = [
     "003_cracker_box", "004_sugar_box", "006_mustard_bottle",
@@ -102,8 +104,6 @@ class HOv3Dataset(DatasetBase):
         return self._obj_cache[obj_name]
 
     def _get_sample(self, vid_id, frame_id):
-        import cv2
-
         frame_id = str(frame_id)
         seq = vid_id.split("_")[0]
         rgb_rel = os.path.join(seq, "rgb", frame_id)
@@ -112,14 +112,14 @@ class HOv3Dataset(DatasetBase):
             if os.path.exists(os.path.join(self.pic_dir, "train", rgb_rel))
             else "test"
         )
-        image = cv2.imread(os.path.join(self.pic_dir, split, rgb_rel))
-        mask = cv2.imread(
+        image = imread(os.path.join(self.pic_dir, split, rgb_rel))
+        mask = imread(
             os.path.join(
                 self.pic_dir, split, seq, "mask",
                 "%05d.png" % int(frame_id.split(".")[0]),
             )
         )
-        mask = cv2.resize(mask, (640, 480))
+        mask = resize_linear_u8(mask, (640, 480))
 
         bbox = self.bbx_params[vid_id]
         image, trans = augmentation(image, bbox, self.image_size)
@@ -131,7 +131,7 @@ class HOv3Dataset(DatasetBase):
         anno = read_annotation(self.pic_dir, seq, frame_id.split(".")[0], split)
         obj_name = anno["objName"]
         obj_v = self._load_obj_verts(obj_name)
-        rot = cv2.Rodrigues(anno["objRot"])[0]
+        rot = rodrigues(anno["objRot"])
         vertices_obj = np.zeros((OBJ_VERTS_PAD, 3), np.float32)
         v_now = obj_v @ rot.T + anno["objTrans"]
         vertices_obj[: v_now.shape[0]] = v_now

@@ -19,6 +19,7 @@ from hoig_torch.data.dataset_base import (
     normalize_image,
 )
 from hoig_torch.geometry.mesh import load_obj
+from hoig_torch.runtime import imread
 
 # _YCB_CLASSES (HOIG_DexYCB/utils/nmr.py:14-36): id -> name, 1-based
 YCB_CLASSES = {
@@ -130,9 +131,7 @@ class YCBDataset(DatasetBase):
         return obj_mesh, pose_m[0].astype(np.float32), betas, cam, grasp_name
 
     def _get_sample(self, vid_id, frame_id):
-        import cv2
-
-        image = cv2.imread(
+        image = imread(
             os.path.join(self.pic_dir, vid_id, "color_{:06d}.jpg".format(frame_id))
         )
         bbox = self.bbx_params[vid_id]

@@ -3,12 +3,12 @@
 Port of hoig_tpu/geometry/obj_io.py (the neural renderer's load_textures and
 create_texture_image with save_obj). Host-side numpy: it runs once per OBJ.
 
-PNG textures are read and written with the port's stdlib codec
-(hoig_torch.utils.util.read_png / encode_png), so no cv2 or PIL is needed for
-them. Another image format imports cv2 when it is met and raises, naming the
-file, where cv2 is missing. Writing the texture PNG can fail only with the
-file system's own error: a textured OBJ is never written without its
-texture (the JAX package passes over a failed cv2.imwrite).
+Textures are read as the JAX package's cv2.imread reads them, by the native
+runtime (hoig_torch.runtime.imread: JPEG and PNG), and written with the
+port's stdlib PNG encoder (hoig_torch.utils.util.encode_png), so neither
+needs cv2 or PIL. Writing the texture PNG can fail only with the file
+system's own error: a textured OBJ is never written without its texture
+(the JAX package passes over a failed cv2.imwrite).
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import os
 import numpy as np
 
 from hoig_torch.geometry.mesh import load_obj
-from hoig_torch.utils.util import read_png, save_image
+from hoig_torch.runtime import imread
+from hoig_torch.utils.util import save_image
 
 
 def _barycentric_cube(tex_size: int) -> np.ndarray:
@@ -60,17 +61,7 @@ def load_textures_from_image(texture_img: np.ndarray, vts: np.ndarray, faces_vts
 
 def _read_texture(path: str) -> np.ndarray:
     """(H, W, 3) RGB float32 in [0, 1]."""
-    if path.lower().endswith(".png"):
-        return read_png(path).astype(np.float32) / 255.0
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"the texture {path} is not a PNG, and reading it needs cv2, "
-                          "which is not installed") from e
-    img = cv2.imread(path)
-    if img is None:
-        raise FileNotFoundError(f"cv2 cannot read the texture {path}")
-    return img[:, :, ::-1].astype(np.float32) / 255.0
+    return imread(path)[:, :, ::-1].astype(np.float32) / 255.0
 
 
 def load_obj_with_textures(obj_path: str, tex_size: int = 3):

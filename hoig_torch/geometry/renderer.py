@@ -35,6 +35,7 @@ from hoig_torch.ops.rasterizer_cuda import rasterize_fim_wim_auto
 from hoig_torch.ops.table_gather import gather_rows
 from hoig_torch.ops.texture import lighting as apply_lighting
 from hoig_torch.ops.texture import sample_textures_trilinear
+from hoig_torch.runtime import imread, resize_linear_u8
 
 NUM_HAND_VERTS = 778
 NUM_HAND_FACES = 1538
@@ -51,7 +52,8 @@ SEM_HAND_PARTS = ("palm", "thumb", "index_finger", "middle_finger", "ring_finger
 @dataclasses.dataclass
 class ObjectSpec:
     """One rigid object: mesh path and, optionally, its texture image (any
-    size; read with cv2 and resized to the table's image size)."""
+    size; read and resized to the table's image size as cv2.imread and
+    cv2.resize do, by the native runtime)."""
 
     name: str
     obj_path: str
@@ -94,12 +96,7 @@ def _object_texture(path: str | None, image_size: int) -> np.ndarray:
     """(3, S, S) texture in [-1, 1], RGB; zeros for an untextured object."""
     if path is None:
         return np.zeros((3, image_size, image_size), np.float32)
-    import cv2
-
-    img = cv2.imread(path)
-    if img is None:
-        raise FileNotFoundError(f"cannot read the object texture {path}")
-    img = cv2.resize(img[:, :, ::-1], (image_size, image_size))
+    img = resize_linear_u8(imread(path)[:, :, ::-1], (image_size, image_size))
     return (img.astype(np.float32) / 255.0 * 2.0 - 1.0).transpose(2, 0, 1)
 
 

@@ -1,13 +1,18 @@
 """The port's data pipeline and option layer against hoig_tpu on the CPU: the
 options, train_config_from_opt, the native runtime, the datasets and the
-loader on the fabricated HOv3 and DexYCB trees and on the synthetic mode,
-build_environment with a textured object, .npz weights and the PNG
-encoder."""
+loader on the fabricated HOv3, DexYCB and InterHand eval trees and on the
+synthetic mode, build_environment with a textured object, .npz weights and
+the PNG encoder. The port's real-data calls run with cv2 unimportable, as
+on the card's machine; the JAX package's read with cv2."""
 
+import contextlib
 import dataclasses
 import io
+import json
 import os
 import pickle
+import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -112,6 +117,34 @@ def test_runtime_matches_jax():
                                       jruntime.normalize_chw(patch, **kw))
 
 
+@contextlib.contextmanager
+def _without_cv2(monkeypatch):
+    """cv2 unimportable for the port's calls inside the block."""
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "cv2", None)
+        with pytest.raises(ImportError):
+            import cv2  # noqa: F401
+        yield
+
+
+@pytest.fixture(scope="module")
+def hov3_half_masks_tree(hov3_tree, tmp_path_factory):  # noqa: F811
+    """The HOv3 tree with its masks at 320x240, written with libpng's
+    adaptive filters: the datasets resize them back to 640x480."""
+    import cv2
+
+    root = tmp_path_factory.mktemp("hov3_half")
+    data_dir = str(root / "data")
+    shutil.copytree(hov3_tree["data_dir"], data_dir)
+    for dirpath, _, names in os.walk(data_dir):
+        for name in names:
+            if dirpath.endswith("mask"):
+                path = os.path.join(dirpath, name)
+                half = cv2.resize(cv2.imread(path), (320, 240), interpolation=cv2.INTER_AREA)
+                cv2.imwrite(path, half, [cv2.IMWRITE_PNG_COMPRESSION, 3])
+    return dict(data_dir=data_dir, obj_dir=hov3_tree["obj_dir"])
+
+
 def _assert_tree_equal(a, b, path=""):
     assert type(a) is type(b) or (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)), path
     if isinstance(a, dict):
@@ -158,15 +191,20 @@ def _dataset_pair(mode, tree, tmp_path, train, pairs=None):
     return jcls(jopt, is_for_train=train), tcls(topt, is_for_train=train)
 
 
-@pytest.mark.parametrize("mode", ["hov3", "ycb"])
-def test_real_datasets_and_loader_match_jax(mode, request, tmp_path):
+@pytest.mark.parametrize("mode", ["hov3", "ycb", "hov3_half_masks"])
+def test_real_datasets_and_loader_match_jax(mode, request, tmp_path, monkeypatch):
+    """Images, masks, crop matrices and thetas bit-equal to the JAX
+    package's (which reads with cv2), the port's read with cv2 unimportable."""
     tree = request.getfixturevalue(f"{mode}_tree")
+    mode = mode.split("_")[0]
     jds, tds = _dataset_pair(mode, tree, tmp_path, train=True)
     assert len(tds) == len(jds) == 4
     jds.set_seed(3)
     tds.set_seed(3)
     for i in (0, 1):
-        _assert_tree_equal(jds[i], tds[i])
+        with _without_cv2(monkeypatch):
+            got = tds[i]
+        _assert_tree_equal(jds[i], got)
     # loader batches: the same permutation per epoch, the same collation
     jds.set_seed(5)
     tds.set_seed(5)
@@ -175,7 +213,9 @@ def test_real_datasets_and_loader_match_jax(mode, request, tmp_path):
     for epoch in (1, 2):
         jdl.set_epoch(epoch)
         tdl.set_epoch(epoch)
-        jb, tb = list(jdl), list(tdl)
+        jb = list(jdl)
+        with _without_cv2(monkeypatch):
+            tb = list(tdl)
         assert len(tb) == len(jb) == 2
         for a, b in zip(jb, tb):
             _assert_tree_equal(a, b)
@@ -192,8 +232,66 @@ def test_real_datasets_and_loader_match_jax(mode, request, tmp_path):
         pickle.dump(pairs, fp)
     jds, tds = _dataset_pair(mode, tree, tmp_path, train=False, pairs=path)
     assert len(tds) == len(jds) == 2
-    _assert_tree_equal(jds[1], tds[1])
-    assert tds[1]["nameA"] == pairs[0][0]
+    with _without_cv2(monkeypatch):
+        got = tds[1]
+    _assert_tree_equal(jds[1], got)
+    assert got["nameA"] == pairs[0][0]
+
+
+@pytest.fixture(scope="module")
+def interhand_tree(tmp_path_factory):
+    """An InterHand2.6M eval tree (reference data/eval_dataset.py): three
+    512x334 frames of one capture, camera and action, as JPEGs of three
+    kinds, with the MANO and camera JSONs, the box pickle and the pair list."""
+    import cv2
+
+    root = tmp_path_factory.mktemp("interhand")
+    rng = np.random.RandomState(9)
+    capture, cam, action = "Capture0", "cam400262", "0000_neutral_relaxed"
+    img_dir = root / "images" / capture / cam / action
+    img_dir.mkdir(parents=True)
+    (root / "params").mkdir()
+    kinds = [[], [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+                  cv2.IMWRITE_JPEG_RST_INTERVAL, 5, cv2.IMWRITE_JPEG_QUALITY, 80],
+             [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+              cv2.IMWRITE_JPEG_OPTIMIZE, 1]]
+    frames, mano = [], {}
+    for k, opts in enumerate(kinds):
+        frame = f"image{1000 + k}.jpg"
+        frames.append(frame)
+        cv2.imwrite(str(img_dir / frame), rng.randint(0, 256, (334, 512, 3)).astype(np.uint8),
+                    opts)
+        mano[str(1000 + k)] = {hand: {"pose": rng.randn(48).tolist(), "shape": rng.randn(10).tolist(),
+                                      "trans": rng.randn(3).tolist()} for hand in ("left", "right")}
+    cams = {"campos": {"400262": rng.randn(3).tolist()},
+            "camrot": {"400262": rng.randn(3, 3).tolist()},
+            "focal": {"400262": [1200.0, 1200.0]}, "princpt": {"400262": [256.0, 167.0]}}
+    (root / "params" / "InterHand2.6M_train_MANO_NeuralAnnot.json").write_text(
+        json.dumps({"0": mano}))
+    (root / "params" / "InterHand2.6M_train_camera.json").write_text(json.dumps({"0": cams}))
+    with open(root / "params" / "InterHand_Tiny_bbx.pkl", "wb") as fp:
+        pickle.dump({f"{capture}/{cam}/{action}": [100.0, 40.0, 250.0, 260.0]}, fp)
+    src = f"{capture}/{cam}/{action}/{frames[0]}"
+    with open(root / "eval_pairs.pkl", "wb") as fp:
+        pickle.dump({src: [f"{capture}/{cam}/{action}/{f}" for f in frames[1:]]}, fp)
+    return dict(data_dir=str(root), pairs=str(root / "eval_pairs.pkl"))
+
+
+def test_interhand_eval_dataset_matches_jax(interhand_tree, tmp_path, monkeypatch):
+    from hoig_tpu.data.eval_dataset import InterHandEvalDataset as JaxInterHand
+    from hoig_torch.data.eval_dataset import InterHandEvalDataset
+
+    args = ["--data_dir", interhand_tree["data_dir"], "--params_dir", "params", "--images_dir",
+            "images", "--image_size", "64", "--num_repeats", "2"]
+    jopt, topt = _both(args, tmp_path, train=False)
+    # no option parser defines eval_pairs (the dataset is registered nowhere)
+    jopt.eval_pairs = topt.eval_pairs = interhand_tree["pairs"]
+    jds, tds = JaxInterHand(jopt, is_for_train=False), InterHandEvalDataset(topt, False)
+    assert len(tds) == len(jds) == 4
+    for i in (0, 1, 3):
+        with _without_cv2(monkeypatch):
+            got = tds[i]
+        _assert_tree_equal(jds[i], got)
 
 
 def test_loader_order_sharding_and_errors():
@@ -256,10 +354,12 @@ def _real_asset_tree(root):
             str(root / "obj"), "--data_dir", str(root / "data"), "--image_size", "32"]
 
 
-def test_build_environment_textured_object_matches_jax(tmp_path):
+def test_build_environment_textured_object_matches_jax(tmp_path, monkeypatch):
     args = _real_asset_tree(tmp_path)
     jopt, topt = _both(args, tmp_path)
-    j, t = jenv.build_environment(jopt), tenv.build_environment(topt, device="cpu")
+    j = jenv.build_environment(jopt)
+    with _without_cv2(monkeypatch):
+        t = tenv.build_environment(topt, device="cpu")
     assert t["tables_np"].object_names == j["tables_np"].object_names
     for k in ("faces", "face_valid", "num_faces", "num_verts", "map_fn", "sem", "fim_uv",
               "faces_uv_coord", "obj_tex", "wim_uv"):

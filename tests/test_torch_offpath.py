@@ -153,8 +153,11 @@ def test_textured_obj_written_and_read_back_by_both_packages(tmp_path):
 
 
 def test_non_png_texture_needs_cv2(tmp_path, monkeypatch):
-    """A JPEG texture goes through cv2 as in the JAX package; without cv2
-    the port raises and names the file instead of returning white cubes."""
+    """A JPEG texture: the JAX package reads it with cv2, the port with its
+    native reader (hoig_torch.runtime.imread) with cv2 unimportable, to the
+    same cubes; a texture the port cannot read raises and names the file
+    instead of returning white cubes. (A JPEG texture needed cv2 before the
+    native reader; the name stays.)"""
     import cv2
 
     v, f = blob(12)
@@ -163,11 +166,12 @@ def test_non_png_texture_needs_cv2(tmp_path, monkeypatch):
     img = cv2.imread(str(tmp_path / "m.png"))
     cv2.imwrite(str(tmp_path / "m.jpg"), img)
     (tmp_path / "m.mtl").write_text("newmtl material_1\nmap_Kd m.jpg\n")
-    info, cubes = tobj.load_obj_with_textures(str(tmp_path / "m.obj"), 2)
-    np.testing.assert_array_equal(cubes, jobj.load_obj_with_textures(str(tmp_path / "m.obj"),
-                                                                     2)[1])
+    want = jobj.load_obj_with_textures(str(tmp_path / "m.obj"), 2)[1]
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match="m.jpg"):
+    info, cubes = tobj.load_obj_with_textures(str(tmp_path / "m.obj"), 2)
+    np.testing.assert_array_equal(cubes, want)
+    (tmp_path / "m.jpg").write_bytes((tmp_path / "m.jpg").read_bytes()[:300])
+    with pytest.raises(ValueError, match="m.jpg"):
         tobj.load_obj_with_textures(str(tmp_path / "m.obj"), 2)
 
 
