@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's serving path and its GAN training step on one
 NVIDIA GPU, with the shift attention engine and with the fused one, then the
 port's drivers, train_torch.py and eval_torch.py, its data-parallel step, the
-metric battery, the modules off the main path, the measuring tools and the
-drivers over real-layout data sets without cv2.
+metric battery, the modules off the main path, the measuring tools, the
+drivers over real-layout data sets without cv2 and the benchmark,
+bench_torch.py.
 
     python3 chip_smoke.py [--out DIR]   # from the root of a checkout, one card
 
@@ -194,9 +195,27 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      second textured) and eval_torch.py --dataset_mode ycb over one batch
      of 4 pairs likewise: 18 / 1 / 2 launches, 12 PNGs of 256x256, the
      batch ms beside phase 9's;
- 14. print the drivers line, the phase 10 line, the phase 11 line, the
-     phase 12 line, the phase 13 line, the kernels line, the card line and,
-     last, the result line.
+ 14. the benchmark: bench_torch.py as a subprocess in full mode with its
+     default budget (train_bf16, gen_fwd, train_bf16_b8, train_bf16_dexycb,
+     train_fp32 at 256 px, conv_dim 64, repeat 6; each leg its own process)
+     and again with HOIG_BENCH_HEADLINE_ONLY=1 HOIG_BENCH_ENGINE=pallas
+     (the fused engine's headline): both exit 0, the last stdout line is the
+     headline JSON with a finite positive value; the details hold all five
+     legs, none failed or skipped, torch's TF32 defaults; the b8 step
+     within 2.2x of the b4 step (bench.py's b4-vs-b8 per-image flag is
+     recorded and printed: the host-bound step takes about as long at b8 as
+     at b4, which puts b8's per-image throughput at the flag's bound);
+     every leg's share of its peak in (0, 1); each leg's launches per step
+     or call equal the FLOP walk's (flops.kernel_launches plus B2 1 and B3
+     2) and phases 5 / 6e / 7's counts (shift steps at b4 and b8 18 / 18 /
+     9 / 1 / 2, the serving call 18 / 1 / 2, the fused step 9 of each B4
+     kernel and 1 / 2, the fp32 gather step 1 / 2); one line per leg
+     (images/s, step ms, synchronized ms, share of peak, launches, peak
+     MiB), the headline's step beside phase 7's with the same remat and
+     gen_fwd's call beside phase 5's, as information;
+ 15. print the drivers line, the phase 10 line, the phase 11 line, the
+     phase 12 line, the phase 13 line, the bench line, the kernels line, the
+     card line and, last, the result line.
 
 Details (result.json, profile.txt, build.txt: the compiler's report) go to
 --out, by default build/chip_smoke/.
@@ -3247,6 +3266,147 @@ def real_data_phase(out_dir: Path, drivers: dict, dev: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. bench_torch.py, the port's benchmark: every leg in full mode, then the
+# headline alone with the fused engine
+# ---------------------------------------------------------------------------
+
+# the bench's own limit is its diagnostic budget (2700 s by default); this
+# phase's is chip_smoke's
+BENCH_TIMEOUT_S = 600
+# launches per step or call of each leg at the main path's counts (phases 5,
+# 6e and 7); the fp32 leg's gather engine launches no attention kernel
+BENCH_LAUNCHES = {"train_bf16": LAUNCHES_PER_STEP, "gen_fwd": LAUNCHES_PER_CALL,
+                  "train_bf16_b8": LAUNCHES_PER_STEP, "train_bf16_dexycb": LAUNCHES_PER_STEP,
+                  "train_fp32": {"rasterizer": 1, "table_gather": 2}}
+
+
+def _bench_run(label: str, out_dir: Path, env_extra: dict) -> dict:
+    """`python bench_torch.py --out out_dir` in its own process group (its
+    legs' processes go with it on a timeout): its headline line, checked."""
+    import os
+    import signal
+
+    import bench_torch
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HOIG_BENCH_")}
+    env.update(env_extra)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(out_dir / f"{label}.stderr.txt", "w") as err:
+        proc = subprocess.Popen([sys.executable, str(REPO / "bench_torch.py"), "--out",
+                                 str(out_dir)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True, start_new_session=True)
+        try:
+            stdout, _ = proc.communicate(timeout=BENCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            stdout, _ = proc.communicate()
+            fail(f"bench_torch.py ({label}) passed {BENCH_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    (out_dir / f"{label}.stdout.txt").write_text(stdout)
+    check(proc.returncode == 0, f"bench_torch.py ({label}) exited {proc.returncode}: "
+          f"{(out_dir / f'{label}.stderr.txt').read_text()[-3000:]}")
+    lines = stdout.strip().splitlines()
+    check(bool(lines), f"bench_torch.py ({label}) printed nothing")
+    head = json.loads(lines[-1])
+    check(head.get("metric") == bench_torch.METRIC and "rehearsal" not in head
+          and math.isfinite(head.get("value", math.nan)) and head["value"] > 0,
+          f"bench_torch.py ({label}): last line {lines[-1]!r} is not the headline")
+    return dict(headline=head, wall_s=wall)
+
+
+def _bench_leg(leg: str, d: dict, engine: str, want: dict) -> dict:
+    """One leg's numbers from the bench's details, its launches held to the
+    walk's (flops.kernel_launches plus B2 and B3) and to `want`."""
+    import torch
+
+    import bench_torch
+
+    spec = bench_torch.leg_spec(leg, engine)
+    walk = bench_torch.expected_launches(spec)
+    check(walk == want, f"{leg}: the walk's launches {walk} != the main path's {want}")
+    check(d.get(f"{leg}_launches") == walk, f"{leg}: launches {d.get(f'{leg}_launches')} per "
+          f"{'step' if spec['kind'] == 'train' else 'call'} != the walk's {walk}")
+    mfu = d.get(f"{leg}_mfu")
+    check(mfu is not None and 0 < mfu < 1, f"{leg}: share of peak {mfu}")
+    check(d.get(f"{leg}_device") == torch.cuda.get_device_name(0), f"{leg}: device "
+          f"{d.get(f'{leg}_device')}")
+    check(d.get(f"{leg}_batch") == spec["batch"], f"{leg}: batch {d.get(f'{leg}_batch')}")
+    unit = "step_ms" if spec["kind"] == "train" else "ms"
+    row = dict(images_per_s=d[f"{leg}_images_per_sec_per_chip"], ms=d[f"{leg}_{unit}"],
+               blocked_ms=d[f"{leg}_{unit}_blocked"], mfu=mfu, mfu_peak=d[f"{leg}_mfu_peak"],
+               tflops_per_s=d[f"{leg}_tflops_per_sec"], launches=d[f"{leg}_launches"],
+               peak_mib=d[f"{leg}_peak_mem_mib"], first_step_s=d[f"{leg}_first_step_s"],
+               kernel_build_s=d[f"{leg}_kernel_build_s"], batch=spec["batch"], engine=engine)
+    log(f"  {leg} ({engine}, batch {spec['batch']}): {row['images_per_s']:.3f} images/s, "
+        f"{row['ms']:.2f} ms per {'step' if spec['kind'] == 'train' else 'call'} (synchronized "
+        f"{row['blocked_ms']:.2f}), {mfu:.2%} of the {row['mfu_peak']}, launches "
+        f"{row['launches']}, peak {row['peak_mib']:.0f} MiB; first step {row['first_step_s']:.2f} s, kernels "
+        f"{row['kernel_build_s']:.2f} s")
+    return row
+
+
+def bench_phase(out_dir: Path, serve: dict, train: dict, fused: dict) -> dict:
+    """Phase 14: bench_torch.py in full mode (all five legs, the default
+    budget), then HOIG_BENCH_HEADLINE_ONLY=1 HOIG_BENCH_ENGINE=pallas.
+    Returns the phase's numbers."""
+    import torch
+
+    import bench_torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = out_dir / "bench"
+    full = _bench_run("full", root, {})
+    d = json.loads((root / "BENCH_DETAILS.json").read_text())
+    for key in ("legs_failed", "legs_skipped_for_budget"):
+        check(key not in d, f"bench_torch.py: {key} {d.get(key)}")
+    # bench.py's b4-vs-b8 flag (per-image throughput within 2.2x) is recorded,
+    # not held: the eager step is host-bound at both batches, so the b8 step
+    # takes about as long as the b4 step, and b8's per-image throughput sits
+    # at twice b4's, inside the flag's noise. The steps themselves must agree
+    # within bench_torch.TIMING_RATIO: a timing artifact breaks that
+    t4, t8 = d["train_bf16_step_ms"], d["train_bf16_b8_step_ms"]
+    check(1 / bench_torch.TIMING_RATIO < t8 / t4 < bench_torch.TIMING_RATIO,
+          f"bench_torch.py: the b8 step {t8:.1f} ms against the b4 step {t4:.1f} ms")
+    check(not [k for k in d if k.startswith("SANITY_FAIL_") and k != "SANITY_FAIL_b4_vs_b8"],
+          f"bench_torch.py: {[k for k in d if k.startswith('SANITY_FAIL_')]}")
+    log(f"  b8 step / b4 step {t8 / t4:.3f}; bench.py's b4-vs-b8 flag: "
+        f"{d.get('SANITY_FAIL_b4_vs_b8', 'not raised')}")
+    check(round(d["train_bf16_images_per_sec_per_chip"], 3) == full["headline"]["value"],
+          "bench_torch.py: the headline line is not the headline leg's number")
+    check(d["tf32"] == {"cudnn": True, "matmul": False}, f"bench_torch.py: TF32 flags {d['tf32']}"
+          " are not torch's defaults")
+    log(f"  bench_torch.py (full, {full['wall_s']:.1f} s): headline {full['headline']}; "
+        f"corner engine {d['corner_engine']}, TF32 {d['tf32']}")
+    legs = {leg: _bench_leg(leg, d, "gather" if leg == "train_fp32" else "shift", want)
+            for leg, want in BENCH_LAUNCHES.items()}
+    log(f"  headline step {legs['train_bf16']['ms']:.2f} ms beside phase 7's median with the "
+        f"same remat {train['remat']['step_ms']:.2f}; gen_fwd call {legs['gen_fwd']['ms']:.2f} ms "
+        f"beside phase 5's {serve['call_ms']:.2f} (information, not checks)")
+
+    ab_dir = out_dir / "bench_ab"
+    ab = _bench_run("fused_headline", ab_dir, {"HOIG_BENCH_HEADLINE_ONLY": "1",
+                                                "HOIG_BENCH_ENGINE": "pallas"})
+    ab_d = json.loads((ab_dir / "BENCH_AB.json").read_text().splitlines()[-1])
+    check(ab_d["corner_engine"] == "pallas", f"fused headline: engine {ab_d['corner_engine']}")
+    check(not (ab_dir / "BENCH_DETAILS.json").exists(),
+          "a headline-only run wrote BENCH_DETAILS.json")
+    fused_row = _bench_leg("train_bf16", ab_d, "pallas", FUSED_LAUNCHES_PER_STEP)
+    log(f"  fused headline ({ab['wall_s']:.1f} s): {ab['headline']}; step {fused_row['ms']:.2f} ms "
+        f"(bf16 remat defaults) beside phase 6e's fused step with remat off "
+        f"{fused['training']['step_ms']:.2f} (information)")
+    out = dict(headline=full["headline"], full_wall_s=full["wall_s"], legs=legs,
+               b8_over_b4_step=t8 / t4, sanity_b4_vs_b8=d.get("SANITY_FAIL_b4_vs_b8"),
+               baseline_estimate=d["baseline_estimate"], bf16_speedup=d.get("bf16_speedup"),
+               tf32=d["tf32"], fused_headline=dict(ab["headline"], wall_s=ab["wall_s"],
+                                                   **fused_row),
+               seconds=time.perf_counter() - t_phase)
+    log(f"  phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
@@ -3423,7 +3583,13 @@ def main() -> int:
         f"batch), {IMAGE} px, batch {BATCH}, bf16, conv_dim 64, repeat 6; card {card}")
     real_data = real_data_phase(out_dir, drivers)
 
-    # 14. report
+    # 14. the benchmark
+    log(f"[14] bench_torch.py: full mode (train_bf16, gen_fwd, train_bf16_b8, train_bf16_dexycb, "
+        f"train_fp32; 256 px, conv_dim 64, repeat 6), then the headline alone with the fused "
+        f"engine; card {card}")
+    bench = bench_phase(out_dir, serve, train, fused)
+
+    # 15. report
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -3445,7 +3611,7 @@ def main() -> int:
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                   kernels=results, cpu_compare=cpu_cmp, serving=serve, training=train,
                   fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics,
-                  offpath=offpath, tools=tools, real_data=real_data)
+                  offpath=offpath, tools=tools, real_data=real_data, bench=bench)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"drivers": drivers}, default=str))
     log(json.dumps({"ddp": ddp, "metrics": metrics}, default=str))
@@ -3453,6 +3619,9 @@ def main() -> int:
     log(json.dumps({"tools": {k: tools[k] for k in ("legs", "flop_check", "seconds")},
                     "card": card}, default=str))
     log(json.dumps({"real_data": real_data, "card": card}, default=str))
+    log(json.dumps({"bench": {k: bench[k] for k in ("headline", "legs", "b8_over_b4_step",
+                                                    "sanity_b4_vs_b8", "fused_headline",
+                                                    "seconds")}, "card": card}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

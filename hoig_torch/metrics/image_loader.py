@@ -2,8 +2,9 @@
 reference data/default_dataset.py).
 
 The JAX package decodes with PIL and resizes twice with PIL's BILINEAR
-(to img_size, then to 299). The card's machine has no PIL, so the PNGs are
-decoded by the port's stdlib decoder (hoig_torch.utils.util.decode_png)
+(to img_size, then to 299). The port does not import PIL (a machine that
+runs it need not have it), so the PNGs are decoded by the port's decoder
+(hoig_torch.utils.util.decode_png)
 and resized by `pil_bilinear_resize`, bit-equal to PIL: its double-
 precision tent weights turned into 22-bit fixed point, a horizontal pass,
 clipped and rounded to uint8, then a vertical pass; a same-size resize is a

@@ -28,10 +28,12 @@ from __future__ import annotations
 import dataclasses
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM3
-# bytes/s, FP32 FLOP/s on the CUDA cores, bf16 FLOP/s on the tensor cores
+# bytes/s, FP32 FLOP/s on the CUDA cores, bf16 and TF32 FLOP/s on the tensor
+# cores (cuDNN runs f32 convolutions in TF32 unless torch is told otherwise)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
+PEAK_TF32_TC_FLOPS = 494.7e12
 
 N_DOWN = 3  # the generator's down / up stages (models/generator.py)
 FC = 128  # ExtractorAttn's fc_0 width

@@ -124,9 +124,6 @@ def test_the_scan_sees_what_it_should():
 
 # JAX package scripts -> the port's file that takes their place (None: none)
 SCRIPT_EXCEPTIONS = {
-    # the JAX package's benchmark; the port's is a benchmark change's work
-    # (ROADMAP A1)
-    "bench.py": None,
     # drives the JAX package on the TPU (a dry run on a virtual mesh); the
     # smoke script drives the port on the card
     "__graft_entry__.py": "chip_smoke.py",
