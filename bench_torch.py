@@ -187,11 +187,15 @@ def leg_spec(leg: str, engine: str = "shift", image_size: int = 256, conv_dim: i
 def expected_launches(spec: dict) -> dict:
     """The kernel launches per step (per call for gen_fwd) that the FLOP walk
     expects: its attention kernels, plus the conditioning's one rasterizer
-    call and two table gathers."""
+    call and two table gathers and, in a training step, the attention's
+    edge-pad folds (flops.edge_pad_folds)."""
     from hoig_torch.utils import flops
 
-    walk = flops.kernel_launches(spec["tcfg"], spec["batch"], spec["kind"])
-    return dict({k: len(v) for k, v in walk.items()}, rasterizer=1, table_gather=2)
+    tcfg, kind = spec["tcfg"], spec["kind"]
+    walk = flops.kernel_launches(tcfg, spec["batch"], kind)
+    out = dict({k: len(v) for k, v in walk.items()}, rasterizer=1, table_gather=2)
+    folds = flops.edge_pad_folds(tcfg, kind)
+    return dict(out, edge_pad_fold=folds) if folds else out
 
 
 def blocked_ms(run, finish, n: int = 3) -> float:

@@ -53,11 +53,11 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      library yardstick (cuDNN conv2d, conv_transpose2d and the weight gradient of
      the three tensor-core products alone, named in the kernels line's
      "library" key) and its FP32 path on the f32-cast inputs; the same first
-     step twice more with remat off (their G gradients measure the card's
-     run-to-run noise) and once with remat and remat_attn on (18 B4-fwd
-     launches: the recompute runs each layer's forward again), its G
-     gradients held against the remat-off step's; (c) all four kernels on
-     ragged shapes, and B4-bwd-c also on frames with H or W equal to 1 and
+     step twice more with remat off and once with remat and remat_attn on
+     (18 B4-fwd launches: the recompute runs each layer's forward again),
+     every G and D gradient and updated weight of the three bit-equal; (c)
+     all four kernels on ragged shapes and at odd channel counts (run at the
+     next even count), and B4-bwd-c also on frames with H or W equal to 1 and
      below 11 (one pixel collects both margins); (d) fused and shift engines
      agree on the card
      in f32 (TF32 off), 128 px, batch 1, outputs and the gradients of a fixed
@@ -76,22 +76,41 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      largest sum of |v||g|, with the count of elements that differ; dv
      within one ulp plus 1e-5 of |g||src|), and cast to f32 through the FP32
      kernels (dsrc bit-equal); then timed beside their plain versions and
-     the FP32 kernels; warm and timed steps with the per-step launch counts
-     (18 / 18 / 9 / 1 / 2) asserted, finite metrics, every weight moved, D
-     bit-equal across a gated step; the same again with the bf16 remat
-     defaults for the memory peak;
+     the FP32 kernels; the edge-pad fold (edge_pad_fold: the backward of the
+     attention's replicate pads, one fold_kernel launch per padded tensor)
+     on the step's 18 recorded gradients and on ragged frames at pads 2 and
+     5, f32 and bf16, bit-equal to its plain version (the f32 fold rounded
+     once) and to itself, timed beside it and aten's
+     replication_pad2d_backward; warm and timed steps with the per-step
+     launch counts (18 / 18 / 9 / 1 / 2 / 18 edge-pad folds) asserted,
+     finite metrics, every weight moved, D bit-equal across a gated step;
+     the same again with the bf16 remat defaults (bottleneck and attention
+     kept) for the memory peak; (b) the same first step (fresh weights from
+     seed 0) twice with the remat defaults and (c) once with remat off:
+     every G and D gradient and updated weight bit-equal; (d) the
+     determinism probe: one step with the shift engine (remat defaults) and
+     with the fused engine (remat off; remat + remat_attn) under
+     torch.use_deterministic_algorithms(True, warn_only=True), printing
+     every op it warns about, none allowed;
   8. one profiler window over two serving calls and one training step with
-     each engine splits the device time of each by kernel, and asserts 9
-     launches of dg_kernel, dw_tc_kernel, bwd_c_kernel, bwd_c_gattn_kernel
-     and fold_kernel per fused step, and 18 of combine_fwd_tc_kernel and of
-     combine_bwd_src_tc_kernel, 9 of combine_bwd_v_tc_kernel, one of
-     bin_kernel and raster_kernel and none of the FP32 combine kernels per
-     shift step (and per shift serving call: 18, 1, 1, none);
+     each engine, and one shift step with the bf16 remat defaults, splits
+     the device time of each by kernel, and asserts 9 launches of dg_kernel,
+     dw_tc_kernel, bwd_c_kernel and bwd_c_gattn_kernel and 18 of fold_kernel
+     (the gsrc projection's and the target pad's) per fused step, and 18 of
+     combine_fwd_tc_kernel, of combine_bwd_src_tc_kernel and of fold_kernel,
+     9 of combine_bwd_v_tc_kernel, one of bin_kernel and raster_kernel and
+     none of the FP32 combine kernels per shift step with either remat (and
+     per shift serving call: 18, 1, 1, none); the remat-defaults step runs
+     as many InstanceNorm statistics (var_mean) kernels as the remat-off
+     step (the recompute keeps them: models/layers.py keep_stats), and its
+     device kernels, the statistics' ms and the kernels that keeping them
+     saves the recompute (derived from the norms in rematerialized blocks)
+     are printed;
   9. the drivers, after the earlier phases' models are freed, at full width
      on the synthetic dataset (256 px, batch 4, bf16, --use_spade --use_vgg
      --mask_bce, random weights): the loader alone over three batches;
      train_torch.Train for one epoch of 3 steps, each step from launch
-     counters at 0 (18 / 18 / 9 / 1 / 2 as in phase 7), finite errors, the
+     counters at 0 (18 / 18 / 9 / 1 / 2 / 18 as in phase 7), finite errors, the
      first display's visuals forward and validation forward (18 / 1 / 2
      launches each), the validation losses logged, the epoch-1 checkpoint
      files under their reference names; eval_torch.main --load_epoch 1 from
@@ -110,13 +129,11 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      remat off, D's gate on) twice in one process and once through
      hoig_torch.parallel.DataParallel, each from launch counters at 0: the
      data-parallel step's kernel launches are phase 7's (18 / 18 / 9 / 1 /
-     2) and its collectives are counted (the gate's gloo broadcast, the G
-     and D gradient all-reduces, the metrics' all-reduce); its G and D
-     gradients held to the one-process step's within grads_agree's bounds
-     widened by three times the two one-process steps' difference (the
-     bf16 step's run-to-run noise), its updated weights within what Adam's
-     first step makes of the two gradients; the all-reduce of G's and D's
-     flat f32 gradients timed; (b) `python -m torch.distributed.run
+     2 / 18) and its collectives are counted (the gate's gloo broadcast, the
+     G and D gradient all-reduces, the metrics' all-reduce); the two
+     one-process steps bit-equal, and the data-parallel step's G and D
+     gradients and updated weights bit-equal to theirs; the all-reduce of
+     G's and D's flat f32 gradients timed; (b) `python -m torch.distributed.run
      --standalone --nproc_per_node 1 train_torch.py` for one epoch of 3
      synthetic steps at full width: exit 0, its epoch-1 checkpoint, its
      iterations (from its log) beside phase 9's; (c) FID, LPIPS, SSIM and
@@ -159,7 +176,7 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      after one Adam step of each on the same gradients, and one train step
      of each, whose mean |G difference| is at most twice the largest of
      three pairs of steps from the original state and two deep copies of
-     it (the bf16 step's atomics);
+     it;
  12. the measuring tools: scripts/profile_step_torch.py as a subprocess
      (its own profiler session) for the fp32 batch-8 gather training step
      with the drivers' fp32 remat (full; 2 steps) and for the bf16 batch-4
@@ -188,7 +205,7 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      train_torch.py --dataset_mode hov3 over it at full width (256 px,
      batch 4, bf16, seeded random VGG19 weights from an .npz) for 3 steps
      in a subprocess where cv2 cannot be imported: exit 0, the loader alone
-     over 3 batches, 18 / 18 / 9 / 1 / 2 launches per step as in phase 7,
+     over 3 batches, 18 / 18 / 9 / 1 / 2 / 18 launches per step as in phase 7,
      finite errors, the textured object's table bit-equal to the fixture
      texture resized as cv2 does; loader, step and iteration ms beside
      phase 9's; (c) a DexYCB tree (2 nested videos, the 21 YCB objects, the
@@ -206,10 +223,11 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      recorded and printed: the host-bound step takes about as long at b8 as
      at b4, which puts b8's per-image throughput at the flag's bound);
      every leg's share of its peak in (0, 1); each leg's launches per step
-     or call equal the FLOP walk's (flops.kernel_launches plus B2 1 and B3
-     2) and phases 5 / 6e / 7's counts (shift steps at b4 and b8 18 / 18 /
-     9 / 1 / 2, the serving call 18 / 1 / 2, the fused step 9 of each B4
-     kernel and 1 / 2, the fp32 gather step 1 / 2); one line per leg
+     or call equal the FLOP walk's (flops.kernel_launches plus B2 1, B3 2
+     and a training step's edge-pad folds) and phases 5 / 6e / 7's counts
+     (shift steps at b4 and b8 18 / 18 / 9 / 1 / 2 / 18, the serving call
+     18 / 1 / 2, the fused step 9 of each B4 kernel and 1 / 2 / 9, the fp32
+     gather step 1 / 2 / 9); one line per leg
      (images/s, step ms, synchronized ms, share of peak, launches, peak
      MiB), the headline's step beside phase 7's with the same remat and
      gen_fwd's call beside phase 5's, as information;
@@ -252,6 +270,10 @@ KERNELS = {
                                  "hoig_tpu/ops/attn_pallas.py:321"),
     "attn_fused_bwd_a_dw_tc": ("hoig_torch/csrc/attn_fused.cu",
                                "hoig_tpu/ops/attn_pallas.py:409"),
+    # no TPU kernel: the backward of the JAX package's jnp.pad(mode="edge"),
+    # which XLA transposes itself (the fc_0 target half's pad; the shift
+    # engine's source pad at :213)
+    "edge_pad_fold": ("hoig_torch/csrc/attn_fused.cu", "hoig_tpu/models/generator.py:139"),
 }
 # the four B4 wrappers, and the counter each one's bf16 launch adds to: under
 # bf16, B4-fwd's phase A, the gsrc projection and dW run on the tensor cores
@@ -264,13 +286,17 @@ FUSED_BF16 = {"attn_fused_fwd": "attn_fused_fwd_tc", "attn_fused_bwd_c": "attn_f
 # coefficients come from the attention, not from the no-grad flow) needs dv.
 # Under bf16 the forward and both backward kernels run on the tensor cores
 # (counters *_tc). The rasterizer's wrapper counts one call (two kernels).
+# The training step's backward folds the gradient of each edge-padded tensor
+# of the attention once (edge_pad_fold): the fc_0 target half's of every
+# layer, and the shift engine's padded source.
 LAUNCHES_PER_CALL = {"local_combine_tc": 18, "rasterizer": 1, "table_gather": 2}
 LAUNCHES_PER_STEP = {"local_combine_tc": 18, "local_combine_bwd_src_tc": 18,
-                     "local_combine_bwd_v_tc": 9, "rasterizer": 1, "table_gather": 2}
+                     "local_combine_bwd_v_tc": 9, "rasterizer": 1, "table_gather": 2,
+                     "edge_pad_fold": 18}
 # the fused engine: one forward and one backward of each of the 9 layers
 FUSED_LAUNCHES_PER_CALL = {"attn_fused_fwd_tc": 9, "rasterizer": 1, "table_gather": 2}
 FUSED_LAUNCHES_PER_STEP = {**{k: 9 for k in FUSED_BF16.values()}, "rasterizer": 1,
-                           "table_gather": 2}
+                           "table_gather": 2, "edge_pad_fold": 9}
 # under remat_attn the backward recomputes each layer's forward
 FUSED_LAUNCHES_PER_STEP_REMAT = dict(FUSED_LAUNCHES_PER_STEP, attn_fused_fwd_tc=18)
 IMAGE, BATCH = 256, 4
@@ -367,7 +393,7 @@ def recording(rec: Recorder):
     import hoig_torch.ops.local_combine as lc
     import hoig_torch.ops.rasterizer_cuda as rc
 
-    sites = [(af, name, name) for name in FUSED] + [
+    sites = [(af, name, name) for name in (*FUSED, "edge_pad_fold")] + [
              (gen, "local_combine", "local_combine_tc"),
              (lc, "local_combine_backward", "local_combine_backward"),
              (cond, "rasterize_fim_wim_auto", "rasterizer"),
@@ -804,6 +830,62 @@ def check_table_gather(calls) -> dict:
                 bound_by=by, library_ms=tot["library_ms"], library="torch.take_along_dim")
 
 
+# the edge-pad fold off the main path's shapes, at both pads: ragged frames,
+# channel counts that are odd or not multiples of 8, H or W equal to 1 (one
+# pixel collects both margins of an axis)
+EDGE_FRAMES = ((2, 13, 11, 6), (1, 9, 20, 71), (2, 1, 13, 18), (1, 9, 1, 3), (3, 1, 1, 130))
+
+
+def check_edge_pad_fold(calls) -> dict:
+    """The edge-pad fold on the training step's recorded gradients (the
+    attention's padded tensors), then on EDGE_FRAMES in f32 and bf16 with
+    pads 2 and 5: bit-equal to its plain version (the f32 fold rounded once)
+    and to itself on a second call; timed beside the plain version and
+    aten's replication_pad2d_backward (float atomics) on the same gradient."""
+    import torch
+
+    from hoig_torch.ops.attn_fused import edge_pad_fold, edge_pad_fold_reference
+
+    def held(gpad, p, where):
+        out = edge_pad_fold(gpad, p)
+        check(torch.equal(out, edge_pad_fold_reference(gpad, p)),
+              f"edge_pad_fold is not bit-equal to its plain version at {where}")
+        check(torch.equal(out, edge_pad_fold(gpad, p)),
+              f"edge_pad_fold gave other bits on a second call at {where}")
+        return out
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, adds=0.0)
+    shapes = {}
+    for (gpad, p), _ in calls:
+        out = held(gpad, p, f"{tuple(gpad.shape)} pad {p}")
+        b, h, w, c = out.shape
+        image = torch.empty((b, c, h, w), dtype=gpad.dtype, device=gpad.device)
+        grad_nchw = gpad.permute(0, 3, 1, 2)
+        tot["bytes"] += (gpad.numel() + out.numel()) * gpad.element_size()
+        tot["adds"] += gpad.numel() - out.numel()
+        tot["ms"] += device_ms(lambda: edge_pad_fold(gpad, p))
+        tot["plain_ms"] += device_ms(lambda: edge_pad_fold_reference(gpad, p), behind_sleep=False)
+        tot["library_ms"] += device_ms(lambda: torch.ops.aten.replication_pad2d_backward(
+            grad_nchw, image, [p, p, p, p]))
+        key = f"{tuple(gpad.shape)} pad {p} {str(gpad.dtype).replace('torch.', '')}"
+        shapes[key] = shapes.get(key, 0) + 1
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for b, h, w, c in EDGE_FRAMES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for p in (2, 5):
+                gpad = torch.randn(b, h + 2 * p, w + 2 * p, c, device="cuda", generator=gen)
+                held(gpad.to(dtype), p, f"{(b, h, w, c)} pad {p} {dtype}")
+    bnd, by = bound_ms(tot["bytes"], tot["adds"])
+    log(f"  edge_pad_fold: {len(calls)} recorded gradients ("
+        + ", ".join(f"{k} x{n}" for k, n in shapes.items()) + f") and {len(EDGE_FRAMES)} ragged "
+        f"frames at pads 2 and 5, f32 and bf16: bit-equal to the plain version and to itself; "
+        f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, replication_pad2d_backward "
+        f"{tot['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by}) over the {len(calls)}")
+    return dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bnd,
+                bound_by=by, library_ms=tot["library_ms"],
+                library="torch.ops.aten.replication_pad2d_backward")
+
+
 def check_ragged_shapes() -> None:
     """Each kernel against its plain version on small shapes its wrapper
     takes but the main path does not give it: partial pixel tiles and
@@ -1101,6 +1183,136 @@ def recorded_step(state, step, batch, expected: dict, rec) -> tuple[dict, dict]:
     return {k: float(v) for k, v in metrics.items()}, launches
 
 
+def fresh_step(env, ccfg, batch, tcfg, expected: dict) -> dict:
+    """One first step (fresh weights from seed 0, D's gate on) from launch
+    counters at 0, cuDNN held to its deterministic algorithms: {"grad g.<name>"
+    / "grad d.<name>": gradient, "weight g.<name>" / "weight d.<name>": the
+    updated weight} of every parameter."""
+    import torch
+
+    state, step = build_step(env, ccfg, tcfg)
+    torch.backends.cudnn.deterministic = True
+    try:
+        counted_step(state, step, batch, True, expected)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = {}
+    for net in ("g", "d"):
+        for name, p in getattr(state, net).named_parameters():
+            out[f"grad {net}.{name}"] = p.grad.detach().clone()
+            out[f"weight {net}.{name}"] = p.detach().clone()
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def bit_equal(got: dict, want: dict, label: str) -> int:
+    """Every tensor of `got` bit-equal to `want`'s (the gradients and updated
+    weights of two steps); fails naming the differing ones. Returns how many
+    were compared."""
+    import torch
+
+    check(got.keys() == want.keys(), f"{label}: other tensors")
+    bad = sorted(((max_err(got[k], v), k) for k, v in want.items() if not torch.equal(got[k], v)),
+                 reverse=True)
+    check(not bad, f"{label}: {len(bad)} of {len(want)} tensors differ, the largest "
+          + ", ".join(f"{k} by {e:.3g}" for e, k in bad[:6]))
+    n_grads = sum(k.startswith("grad ") for k in want)
+    log(f"  {label}: all {n_grads} gradients and {len(want) - n_grads} updated weights bit-equal")
+    return len(want)
+
+
+# ops that torch's deterministic-algorithms setting names on the bf16 step's
+# path and that this project leaves as they are (ROADMAP C): none. The
+# setting swaps index_add_, index_put_ and the scatter-adds for
+# deterministic kernels without naming them; the bit-equality checks, run
+# without it, see those.
+REMAINING_NONDETERMINISTIC: tuple = ()
+
+
+@contextlib.contextmanager
+def stderr_to(path: Path):
+    """The process's standard error (file descriptor 2, where torch's C++
+    warnings go when no Python handler takes them) written to `path` while
+    the block runs, then echoed to the real standard error."""
+    import os
+
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with open(path, "wb") as sink:
+        os.dup2(sink.fileno(), 2)
+        try:
+            yield
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+    sys.stderr.write(path.read_text(errors="replace"))
+
+
+def _alerts(caught, stderr_path: Path) -> list:
+    """The ops that torch's deterministic setting named, from the Python
+    warnings and the C++ ones on standard error."""
+    pattern = re.compile(r"(?:^|Warning: )(\w+)(?: with [^.\n]*?)? does not have a "
+                         r"deterministic implementation", re.M)
+    text = "\n".join(str(w.message) for w in caught) + "\n" + stderr_path.read_text(
+        errors="replace")
+    return sorted(set(pattern.findall(text)))
+
+
+def determinism_probe(env, ccfg, batch, out_dir: Path) -> dict:
+    """Phase 7 (d): one bf16 step (fresh weights) with each engine under
+    torch.use_deterministic_algorithms(True, warn_only=True): the shift
+    engine with the remat defaults, the fused engine with remat off and with
+    remat + remat_attn. Prints every op the setting names (as a Python
+    warning or, from some ops, as a C++ warning on standard error, once per
+    process) and fails on one that REMAINING_NONDETERMINISTIC does not
+    name. Two controls first show that the probe sees both kinds of call:
+    histc (forward) and grid_sample's backward (autograd's thread)."""
+    import warnings
+
+    import torch
+
+    def probed(label, fn):
+        err = out_dir / f"determinism_{len(out)}.stderr.txt"
+        with warnings.catch_warnings(record=True) as caught, stderr_to(err):
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                fn()
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        out[label] = _alerts(caught, err)
+        return out[label]
+
+    def grid_backward():
+        x = torch.ones(1, 1, 4, 4, device="cuda", requires_grad=True)
+        grid = torch.zeros(1, 2, 2, 2, device="cuda")
+        torch.nn.functional.grid_sample(x, grid, align_corners=False).sum().backward()
+
+    out: dict = {}
+    controls = {"_histc_cuda": lambda: torch.histc(torch.rand(16, device="cuda")),
+                "grid_sampler_2d_backward_cuda": grid_backward}
+    for op, fn in controls.items():
+        check(op in probed(f"control {op}", fn), f"the determinism probe does not see {op}: "
+              "it would be blind")
+    configs = {
+        "shift, bf16 remat defaults": (train_config("shift", remat=True, remat_bottleneck=False,
+                                                    remat_attn=False), LAUNCHES_PER_STEP),
+        "fused, remat off": (train_config("pallas", remat=False), FUSED_LAUNCHES_PER_STEP),
+        "fused, remat + remat_attn": (train_config("pallas", remat=True, remat_bottleneck=False,
+                                                   remat_attn=True), FUSED_LAUNCHES_PER_STEP_REMAT),
+    }
+    for label, (tcfg, expected) in configs.items():
+        ops = probed(label, lambda: fresh_step(env, ccfg, batch, tcfg, expected))
+        log(f"  (d) {label}: torch.use_deterministic_algorithms(True, warn_only=True) names "
+            f"{len(ops)} op(s){': ' + ', '.join(ops) if ops else ''}")
+        stray = [op for op in ops if op not in REMAINING_NONDETERMINISTIC]
+        check(not stray, f"determinism probe, {label}: {stray}")
+    return out
+
+
 def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
                    ) -> tuple[dict, dict, dict]:
     """The GAN training step at full width on the card with the shift engine,
@@ -1125,6 +1337,9 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
     check(len(rec.calls["local_combine_backward"]) == LAUNCHES_PER_STEP["local_combine_bwd_src_tc"],
           f"{len(rec.calls['local_combine_backward'])} backward calls recorded")
     results = check_local_combine_backward(rec.calls["local_combine_backward"])
+    check(len(rec.calls["edge_pad_fold"]) == LAUNCHES_PER_STEP["edge_pad_fold"],
+          f"{len(rec.calls['edge_pad_fold'])} edge-pad folds recorded")
+    results["edge_pad_fold"] = check_edge_pad_fold(rec.calls["edge_pad_fold"])
     for name in results:
         results[name]["launches"] = launches[name]
     del rec
@@ -1149,24 +1364,102 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
     log(f"  remat off: step {med:.2f} ms (median of {len(ms)}; {min(ms):.2f}-{max(ms):.2f}), "
         f"{train['images_per_s']:.2f} images/s, peak {peak:.0f} MiB; gated step leaves D bit-equal")
 
-    # 8. one profiler window over both paths of both engines
-    log("[8] profiler window: 2 serving calls and 1 training step, each engine")
+    # 8. one profiler window over both paths of both engines, and the shift
+    # step with the bf16 remat defaults (conv blocks recomputed, the
+    # bottleneck and the attention kept)
+    log("[8] profiler window: 2 serving calls and 1 training step, each engine; 1 shift step "
+        "with the bf16 remat defaults")
+    rstate, rstep = build_step(env, ccfg, config(remat=True, remat_bottleneck=False,
+                                                 remat_attn=False))
+    counted_step(rstate, rstep, batch, True, LAUNCHES_PER_STEP)  # warm-up
     regions = dict(regions, **more_regions(), hoig_train=(
-        lambda: counted_step(state, step, batch, True, LAUNCHES_PER_STEP), 1))
+        lambda: counted_step(state, step, batch, True, LAUNCHES_PER_STEP), 1), hoig_train_remat=(
+        lambda: counted_step(rstate, rstep, batch, True, LAUNCHES_PER_STEP), 1))
     profile = profile_window(regions, out_dir, log=log)
-    del regions
-    train["device_ms"] = profile.get("hoig_train", {}).get("device_ms")
-
-    # the same step with the bf16 remat defaults (conv blocks recomputed, the
-    # bottleneck and the attention kept): memory peak and step time
-    del state, step
+    del regions, state, step
     torch.cuda.empty_cache()
-    state, step = build_step(env, ccfg, config(remat=True, remat_bottleneck=False, remat_attn=False))
-    ms, peak = timed_steps(state, step, batch, LAUNCHES_PER_STEP, warm=2, n=4)
-    train["remat"] = dict(step_ms=statistics.median(ms), peak_mem_mb=peak, step_ms_all=ms)
+    train["device_ms"] = profile.get("hoig_train", {}).get("device_ms")
+    train["remat"] = remat_profile(profile, rstate.g)
+
+    # the remat defaults' memory peak and step time
+    ms, peak = timed_steps(rstate, rstep, batch, LAUNCHES_PER_STEP, warm=2, n=4)
+    train["remat"].update(step_ms=statistics.median(ms), peak_mem_mb=peak, step_ms_all=ms)
     log(f"  remat (conv blocks; bottleneck and attention kept): step "
         f"{train['remat']['step_ms']:.2f} ms (median of {len(ms)}), peak {peak:.0f} MiB")
+    del rstate, rstep
+    torch.cuda.empty_cache()
+
+    # 7 (b), (c): the same first step (fresh weights from seed 0, same batch)
+    # twice with the remat defaults and once with remat off: every gradient
+    # and updated weight bit-equal
+    log("  (b) the first step twice with the bf16 remat defaults, (c) once with remat off: "
+        "bit for bit")
+    remat_cfg = config(remat=True, remat_bottleneck=False, remat_attn=False)
+    first = fresh_step(env, ccfg, batch, remat_cfg, LAUNCHES_PER_STEP)
+    n = bit_equal(fresh_step(env, ccfg, batch, remat_cfg, LAUNCHES_PER_STEP), first,
+                  "(b) two shift steps with the remat defaults")
+    bit_equal(fresh_step(env, ccfg, batch, config(remat=False), LAUNCHES_PER_STEP), first,
+              "(c) the shift step with remat off against the remat defaults")
+    train["remat"]["bit_equal_tensors"] = n
+    del first
+    log("  (d) determinism probe")
+    train["determinism_probe"] = determinism_probe(env, ccfg, batch, out_dir)
     return results, train, profile
+
+
+def remat_norms(g) -> dict:
+    """InstanceNorms of generator g in rematerialized regions (`_run` with
+    remat on; the attention has none), by kind, and the device kernels that
+    keeping their statistics saves each recompute: under bf16 the f32 cast,
+    var_mean, + eps, rsqrt, the negated mean, its product, and with a weight
+    the scale's two products and the bias (9; 6 without)."""
+    import torch
+
+    from hoig_torch.models.layers import InstanceNorm, ResidualBlock
+
+    def norms(mods, affine):
+        return sum(isinstance(m, InstanceNorm) and (m.weight is not None) == affine
+                   for mod in mods for m in mod.modules())
+
+    bg, regions = g.bg_model, []
+    if bg.remat:
+        for net in (g.src_model, g.tsf_model, g.obj_model):
+            regions += [net.encoders, net.decoders, net.skippers]
+            regions += [net.resnets] if net.remat_mid else []
+        regions += [m for m in bg.model if bg.remat_mid or not isinstance(m, ResidualBlock)]
+    cast = int(bg.model[0].compute_dtype == torch.bfloat16)
+    affine, plain = norms(regions, True), norms(regions, False)
+    return dict(affine=affine, parameter_free=plain,
+                kernels=affine * (8 + cast) + plain * (5 + cast))
+
+
+def remat_profile(profile: dict, g) -> dict:
+    """Phase 8's remat-defaults step against the remat-off step: device
+    kernels, and the InstanceNorm statistics' kernels and ms per step. The
+    recompute reduces nothing (models/layers.py keep_stats): both steps run
+    as many var_mean kernels."""
+    label = "InstanceNorm statistics (var_mean)"
+    derived = remat_norms(g)
+    off, on = profile.get("hoig_train"), profile.get("hoig_train_remat")
+    out = dict(norms_in_remat_regions=derived)
+    if off is None or on is None:
+        log("  profiler: the remat-defaults step against remat off not measured")
+        return out
+    stats = {k: (r["class_kernels"].get(label, 0), r["classes"].get(label, 0.0))
+             for k, r in (("off", off), ("on", on))}
+    out.update(kernels_per_step=on["kernels_per_call"], device_ms=on["device_ms"],
+               remat_off_kernels_per_step=off["kernels_per_call"],
+               in_stats_kernels=stats["on"][0], in_stats_ms=stats["on"][1],
+               remat_off_in_stats_kernels=stats["off"][0], remat_off_in_stats_ms=stats["off"][1])
+    log(f"  profiler: the shift step with the bf16 remat defaults {on['kernels_per_call']} device "
+        f"kernels, {on['device_ms']:.2f} ms busy; remat off {off['kernels_per_call']}, "
+        f"{off['device_ms']:.2f} ms; InstanceNorm statistics {stats['on'][0]} kernels "
+        f"{stats['on'][1]:.3f} ms / remat off {stats['off'][0]} kernels {stats['off'][1]:.3f} ms; "
+        f"{derived['affine']} + {derived['parameter_free']} norms in remat regions, whose kept "
+        f"statistics save the recompute {derived['kernels']} kernels")
+    check(stats["on"][0] == stats["off"][0], "the remat recompute reduced InstanceNorm "
+          f"statistics again: {stats['on'][0]} var_mean kernels against {stats['off'][0]}")
+    return out
 
 
 def _fused_cost(name: str, args) -> tuple[float, float, float]:
@@ -1359,13 +1652,17 @@ RAGGED_FUSED = ((1, 13, 11, 6), (2, 9, 20, 70), (1, 17, 8, 130), (2, 10, 19, 18)
 # equal to 1) or one tile touches both edges (H and W below 11)
 SMALL_BWD_C = ((1, 1, 1, 6), (2, 1, 13, 18), (1, 9, 1, 70), (2, 7, 10, 130), (1, 5, 3, 24),
                (3, 1, 1, 64))
+# odd channel counts, which every B4 wrapper runs at the next even count (a
+# zero channel: attn_fused.with_even_channels)
+ODD_FUSED = ((2, 9, 13, 7), (1, 6, 5, 1))
 
 
 def check_fused_ragged() -> dict:
-    """(c) All four B4 kernels against their plain versions on RAGGED_FUSED,
-    and B4-bwd-c also on SMALL_BWD_C, f32 and bf16, each called twice and
-    held bit-equal to itself (dW on the plain version's dG; the outputs in
-    EXACT bit-equal to the plain version)."""
+    """(c) All four B4 kernels against their plain versions on RAGGED_FUSED
+    and at the odd channel counts of ODD_FUSED, and B4-bwd-c also on
+    SMALL_BWD_C, f32 and bf16, each called twice and held bit-equal to itself
+    (dW on the plain version's dG; the outputs in EXACT bit-equal to the
+    plain version)."""
     import torch
 
     from hoig_torch.ops import attn_fused as af
@@ -1373,7 +1670,7 @@ def check_fused_ragged() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(9)
     randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
     worst: dict = {}  # (kernel, dtype) -> the largest error over the output's largest magnitude
-    for b, h, w, c in RAGGED_FUSED + SMALL_BWD_C:
+    for b, h, w, c in RAGGED_FUSED + ODD_FUSED + SMALL_BWD_C:
         for dtype in (torch.float32, torch.bfloat16):
             src = randn(b, h, w, c).to(dtype)
             w0s = (randn(25, c, 128) / (25 * c) ** 0.5).to(dtype)
@@ -1408,7 +1705,7 @@ def check_fused_ragged() -> dict:
                               f"plain version at {(b, h, w, c)} {dtype}")
                     key = (name, str(dtype).replace("torch.", ""))
                     worst[key] = max(worst.get(key, 0.0), e / float(r_.float().abs().max()))
-    log(f"  (c) ragged shapes {', '.join(map(str, RAGGED_FUSED))}, f32 and bf16: all four B4 "
+    log(f"  (c) ragged shapes {', '.join(map(str, RAGGED_FUSED + ODD_FUSED))}, f32 and bf16: all four B4 "
         f"kernels agree with their plain versions and repeat their bits; B4-bwd-c also on "
         f"{', '.join(map(str, SMALL_BWD_C))}, its source gradient bit-equal throughout; worst "
         "error of the largest entry: " + ", ".join(f"{k} {d} {v:.3g}" for (k, d), v in sorted(worst.items())))
@@ -1499,11 +1796,10 @@ def engines_agree() -> dict:
     return dict(output_err=err, **agree)
 
 
-def grads_agree(got: dict, ref: dict, label: str, slack: dict | None = None) -> dict:
+def grads_agree(got: dict, ref: dict, label: str) -> dict:
     """Two gradients of every weight, leaf by leaf, within the two bounds of
-    the CPU tests' step comparisons (see engines_agree), each widened by
-    slack[leaf] when given; logs the three worst leaves and returns the worst
-    errors and how many leaves are bit-equal."""
+    the CPU tests' step comparisons (see engines_agree); logs the three worst
+    leaves and returns the worst errors and how many leaves are bit-equal."""
     import torch
 
     check(got.keys() == ref.keys(), f"{label}: gradients of other weights")
@@ -1511,11 +1807,9 @@ def grads_agree(got: dict, ref: dict, label: str, slack: dict | None = None) -> 
     rows = []
     for name, r in ref.items():
         e, top = max_err(got[name], r), float(r.abs().max())
-        extra = slack[name] if slack else 0.0
         check(bool(torch.isfinite(got[name]).all()), f"{label}: non-finite gradient of {name}")
-        check(e <= 2e-4 * top + 1e-2 * tree_max + extra and e <= 0.15 * top + 1e-6 * tree_max + extra,
-              f"gradient of {name}: {label} max abs err {e} (leaf max {top}, largest {tree_max}, "
-              f"slack {extra})")
+        check(e <= 2e-4 * top + 1e-2 * tree_max and e <= 0.15 * top + 1e-6 * tree_max,
+              f"gradient of {name}: {label} max abs err {e} (leaf max {top}, largest {tree_max})")
         rows.append((e / top if top > 1e-6 * tree_max else 0.0, e, top, name))
     rows.sort(reverse=True)
     for rel, e, top, name in rows[:3]:
@@ -1637,50 +1931,25 @@ def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
 
     # (b) the same first step (fresh weights from seed 0, same batch) three
     # times more: twice with remat off, then with the conv blocks and the
-    # attention layers rematerialized. The recompute runs the same kernels on
-    # the same inputs, but no two steps on the card need agree to the last
-    # bit: the gathers (torch.gather, index_select) scatter-add their
-    # gradients with float atomics in no fixed order, and bf16 activation
-    # gradients carry such differences onward; in the leaves whose gradient
-    # is zero up to rounding (a conv bias before a norm) they are all there
-    # is. So the two remat-off steps measure that noise leaf by leaf, and the
-    # remat step is held within grads_agree's bounds widened by three times
-    # it (one sample of a difference of two runs, against another). cuDNN is
-    # held to its deterministic algorithms for these steps, so that a
-    # recompute under other memory pressure does not pick another
-    # convolution algorithm
-    def fresh_step_grads(**remat):
-        state, step = build_step(env, ccfg, train_config("pallas", **remat))
-        torch.backends.cudnn.deterministic = True
-        try:
-            counted_step(state, step, batch, True, FUSED_LAUNCHES_PER_STEP_REMAT
-                         if remat.get("remat") else FUSED_LAUNCHES_PER_STEP)
-        finally:
-            torch.backends.cudnn.deterministic = False
-        grads = {n: p.grad for n, p in state.g.named_parameters()}
-        del state, step
-        torch.cuda.empty_cache()
-        return grads
-
-    log("  (b) the fused step again, twice remat off, then with remat and remat_attn on")
-    g_grads = fresh_step_grads(remat=False)
-    g_again = fresh_step_grads(remat=False)
-    noise = {n: max_err(g_again[n], r) for n, r in g_grads.items()}
-    n_equal = sum(torch.equal(g_again[n], r) for n, r in g_grads.items())
-    worst = max(noise, key=noise.get)
-    log(f"  remat off twice: {n_equal} of {len(noise)} G gradient leaves bit-equal; largest "
-        f"difference {noise[worst]:.3g} ({worst}, leaf max {float(g_grads[worst].abs().max()):.3g})")
-    del g_again
-    g_remat = fresh_step_grads(remat=True, remat_bottleneck=False, remat_attn=True)
-    remat = grads_agree(g_remat, g_grads, "remat vs remat off",
-                        slack={n: 3.0 * e for n, e in noise.items()})
-    log(f"  remat step: launches {FUSED_LAUNCHES_PER_STEP_REMAT}; G gradients {remat['bit_equal_leaves']} "
-        f"of {remat['leaves']} leaves bit-equal to the remat-off step's, worst "
-        f"{remat['grad_err_of_leaf_max']:.3g} of a leaf's max, {remat['grad_err_of_tree_max']:.3g} of "
-        f"the largest gradient")
-    train["remat_attn"] = dict(remat, remat_off_twice_bit_equal_leaves=n_equal,
-                               remat_off_twice_max_diff=noise[worst])
-    del g_remat, g_grads
+    # attention layers rematerialized (the recompute runs each layer's
+    # forward again and takes the InstanceNorm statistics back). No op of the
+    # step adds in an order that changes from run to run (the edge pads fold
+    # their gradient in a fixed order: edge_pad_fold), so every gradient and
+    # updated weight is bit-equal across the three. cuDNN is held to its
+    # deterministic algorithms for these steps, so that a recompute under
+    # other memory pressure does not pick another convolution algorithm
+    log("  (b) the fused step again, twice remat off, then with remat and remat_attn on: "
+        "bit for bit")
+    first = fresh_step(env, ccfg, batch, train_config("pallas", remat=False),
+                       FUSED_LAUNCHES_PER_STEP)
+    n = bit_equal(fresh_step(env, ccfg, batch, train_config("pallas", remat=False),
+                             FUSED_LAUNCHES_PER_STEP), first, "two fused steps with remat off")
+    bit_equal(fresh_step(env, ccfg, batch, train_config(
+        "pallas", remat=True, remat_bottleneck=False, remat_attn=True),
+        FUSED_LAUNCHES_PER_STEP_REMAT), first, "the fused step with remat and remat_attn against "
+        "remat off")
+    train["remat_attn"] = dict(launches=FUSED_LAUNCHES_PER_STEP_REMAT, bit_equal_tensors=n)
+    del first
 
     # (c) ragged shapes; (d) the engines agree
     ragged = check_fused_ragged()
@@ -1965,29 +2234,6 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _weights_close(got: dict, want: dict, got_grads: dict, want_grads: dict, lr: float,
-                   label: str) -> float:
-    """Adam's first step moves a weight by lr * g / (|g| + eps), so two
-    gradients a and b leave it within lr * min(2, 2 |a - b| / (max(|a|,
-    |b|) + eps)) of itself, plus the rounding of the update and of the
-    subtraction (four f32 ulps of the weight and of lr). Returns the largest
-    difference as a share of lr."""
-    import torch
-
-    ulp = torch.finfo(torch.float32).eps
-    worst = 0.0
-    for k, w in want.items():
-        a, b = got_grads[k].float(), want_grads[k].float()
-        move = lr * torch.clamp(2 * (a - b).abs() / (torch.maximum(a.abs(), b.abs()) + 1e-8),
-                                max=2.0)
-        diff = (got[k] - w).abs()
-        check(bool((diff <= move + 4 * ulp * (w.abs() + lr)).all()),
-              f"{label} {k}: the updated weight differs by {float(diff.max())} beyond what its "
-              "gradients' difference allows")
-        worst = max(worst, float(diff.max()) / lr)
-    return worst
-
-
 def ddp_phase(env, ccfg) -> dict:
     """Phase 10a: the data-parallel step (hoig_torch.parallel.DataParallel)
     in an NCCL process group of world size 1, at full width (see the module
@@ -2025,34 +2271,27 @@ def ddp_phase(env, ccfg) -> dict:
               f"{'data-parallel' if sync else 'one-process'} step launches {launches}")
         check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"non-finite {metrics}")
         nets = (("g", state.g), ("d", state.d))
-        grads = {f"{n}.{k}": p.grad.detach().clone() for n, net in nets
-                 for k, p in net.named_parameters()}
-        weights = {f"{n}.{k}": p.detach().clone() for n, net in nets
+        tensors = {f"{kind} {n}.{k}": (p.grad if kind == "grad" else p).detach().clone()
+                   for kind in ("grad", "weight") for n, net in nets
                    for k, p in net.named_parameters()}
-        return state, dp, launches, grads, weights, metrics
+        return state, dp, launches, tensors, metrics
 
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
                             world_size=1)
     try:
         log("  (a) NCCL process group of world size 1, one card")
         out = {}
-        state, _, _, ref_g, ref_w, ref_m = one_step(sync=False)
+        state, _, _, ref, ref_m = one_step(sync=False)
         del state
-        _, _, _, again_g, _, _ = one_step(sync=False)
-        noise = {k: max_err(again_g[k], v) for k, v in ref_g.items()}
-        n_equal = sum(torch.equal(again_g[k], v) for k, v in ref_g.items())
-        del again_g
+        # two one-process steps, and the data-parallel step against them: every
+        # gradient and updated weight bit-equal (one rank: the all-reduce sums
+        # one buffer and divides by 1)
+        n = bit_equal(one_step(sync=False)[3], ref, "two one-process steps")
         torch.cuda.empty_cache()
-        state, dp, launches, dp_g, dp_w, dp_m = one_step(sync=True)
+        state, dp, launches, dp_t, dp_m = one_step(sync=True)
         want = {"broadcast_gate": 1, "all_reduce_g": 1, "all_reduce_d": 1, "all_reduce_metrics": 1}
         check(dict(dp.collectives) == want, f"data-parallel step collectives {dict(dp.collectives)}")
-        agree = {}
-        for net in ("g", "d"):
-            pick = lambda d: {k: v for k, v in d.items() if k.startswith(net + ".")}
-            agree[net] = grads_agree(pick(dp_g), pick(ref_g), f"data-parallel {net.upper()} vs one "
-                                     "process", slack={k: 3.0 * noise[k] for k in pick(ref_g)})
-        lr = tcfg.lr_G
-        worst_w = _weights_close(dp_w, ref_w, dp_g, ref_g, lr, "data-parallel vs one process")
+        bit_equal(dp_t, ref, "the data-parallel step against the one-process step")
         metric_err = max(abs(float(dp_m[k]) - float(ref_m[k])) / max(abs(float(ref_m[k])), 1e-6)
                          for k in ref_m)
         # one rank: the averaged metrics are the step's own (a sanity bound;
@@ -2064,22 +2303,17 @@ def ddp_phase(env, ccfg) -> dict:
         ms_d = device_ms(lambda: dist.all_reduce(dp.flat["d"]))
         bound_g, _ = bound_ms(2 * 4 * n_g, 0.0)
         bound_d, _ = bound_ms(2 * 4 * n_d, 0.0)
-        out.update(launches=launches, collectives=dict(dp.collectives),
-                   one_process_twice_bit_equal_leaves=n_equal, leaves=len(ref_g),
-                   grads_g=agree["g"], grads_d=agree["d"], weights_max_diff_of_lr=worst_w,
+        out.update(launches=launches, collectives=dict(dp.collectives), bit_equal_tensors=n,
                    metrics_max_rel_err=metric_err, all_reduce_g_ms=ms_g, all_reduce_d_ms=ms_d,
                    all_reduce_g_bound_ms=bound_g, all_reduce_d_bound_ms=bound_d,
                    all_reduce_g_mb=4 * n_g / 1e6, all_reduce_d_mb=4 * n_d / 1e6)
         log(f"  data-parallel step: kernel launches {launches} (phase 7's), collectives "
-            f"{dict(dp.collectives)}; G gradients {agree['g']['bit_equal_leaves']} of "
-            f"{agree['g']['leaves']} leaves bit-equal to the one-process step's (two one-process "
-            f"steps: {n_equal} of {len(ref_g)}), worst {agree['g']['grad_err_of_leaf_max']:.3g} of a "
-            f"leaf's max; D {agree['d']['bit_equal_leaves']} of {agree['d']['leaves']}; weights "
-            f"within {worst_w:.3g} lr; metrics within {metric_err:.3g} relative")
+            f"{dict(dp.collectives)}; its {n} gradients and updated weights bit-equal to the "
+            f"one-process step's; metrics within {metric_err:.3g} relative")
         log(f"  all_reduce of the flat f32 gradients: G {n_g / 1e6:.1f} M ({4 * n_g / 1e6:.0f} MB) "
             f"{ms_g:.4f} ms (read + write bound {bound_g:.4f}), D {n_d / 1e6:.1f} M {ms_d:.4f} ms "
             f"(bound {bound_d:.4f}); one rank, so NCCL has no peer to reduce with")
-        del state, dp, ref_g, ref_w, dp_g, dp_w
+        del state, dp, ref, dp_t
     finally:
         parallel.shutdown()
         torch.cuda.empty_cache()
@@ -2647,11 +2881,11 @@ def _jax_resume(env, ccfg, batch, tcfg, dev: str) -> dict:
     moments and steps bit-equal, Adam's step where torch keeps it; one Adam
     step of each on the same gradients, bit-equal; one train step of each,
     against a control: two deep copies of the original state, stepped too.
-    The bf16 step's scatter-add atomics make two steps from one state
-    differ (ROADMAP C); the resumed pair's mean |G difference| may be at most
-    twice the largest of the three control pairs'. Their largest element
-    differences are printed only: in two runs on an H100 they moved
-    threefold between pairs of one kind (0.49-1.48 lr), too widely to bound."""
+    The three control pairs measure how far two steps from one state differ
+    here (cuDNN runs with torch's defaults in this phase); the resumed pair's
+    mean |G difference| may be at most twice the largest of theirs (so none
+    where the controls are bit-equal). The largest element differences are
+    printed only."""
     import copy
 
     import numpy as np
@@ -2745,7 +2979,7 @@ def _jax_resume(env, ccfg, batch, tcfg, dev: str) -> dict:
         f"difference {d_loss:.3g}, {same} of {n} weight tensors bit-equal; G differs by "
         f"{moved[1]:.3g} lr on average and {moved[0]:.3g} lr at most, three pairs of steps from "
         "one original state by " + ", ".join(f"{c[1]:.3g} / {c[0]:.3g}" for c in controls)
-        + " lr (the bf16 step's atomics, ROADMAP C; bound: twice the largest control mean)")
+        + " lr (bound: twice the largest control mean)")
     out = dict(counts=list(counts), export_s=export_s, load_s=load_s, step_device=step_dev,
                loss_rel_diff=d_loss, equal_tensors=same, tensors=n, max_g_diff_lr=moved[0],
                mean_g_diff_lr=moved[1], control_g_diff_lr=[list(c) for c in controls])
@@ -2836,7 +3070,8 @@ def tools_phase(env, out_dir: Path, serve: dict, train: dict) -> dict:
     out = dict(profile={
         "fp32_b8_gather_train": _profile_leg(
             "fp32_b8_gather_train", ["--dtype", "fp32", "--engine", "gather", "--batch", "8",
-                                     "--steps", "2", "--warmup", "1"], out_dir, cond, b2b3),
+                                     "--steps", "2", "--warmup", "1"], out_dir,
+            dict(cond, edge_pad_fold=9), dict(b2b3, fold_kernel=9)),
         "bf16_b4_fused_serve": _profile_leg(
             "bf16_b4_fused_serve", ["--dtype", "bf16", "--engine", "pallas", "--leg", "fwd",
                                     "--batch", str(BATCH), "--steps", "2", "--warmup", "2"],
@@ -3278,7 +3513,7 @@ BENCH_TIMEOUT_S = 600
 # 6e and 7); the fp32 leg's gather engine launches no attention kernel
 BENCH_LAUNCHES = {"train_bf16": LAUNCHES_PER_STEP, "gen_fwd": LAUNCHES_PER_CALL,
                   "train_bf16_b8": LAUNCHES_PER_STEP, "train_bf16_dexycb": LAUNCHES_PER_STEP,
-                  "train_fp32": {"rasterizer": 1, "table_gather": 2}}
+                  "train_fp32": {"rasterizer": 1, "table_gather": 2, "edge_pad_fold": 9}}
 
 
 def _bench_run(label: str, out_dir: Path, env_extra: dict) -> dict:
@@ -3522,12 +3757,12 @@ def main() -> int:
         fused[path]["device_ms"] = profile.get(region, {}).get("device_ms")
     del fused_regions
     # dG is built once per backward (by bwd-a-gsrc's entry point), dW runs on
-    # the tensor cores, B4-bwd-c is bwd_c_kernel and bwd_c_gattn_kernel, and
-    # only the gsrc projection folds through device memory: one launch each
-    # per attention layer
+    # the tensor cores, B4-bwd-c is bwd_c_kernel and bwd_c_gattn_kernel: one
+    # launch each per attention layer; fold_kernel folds the gsrc projection's
+    # margins and the fc_0 target half's edge pad: two per layer
     hw = profile.get("hoig_train_fused", {}).get("hand_written")
     want = {"dg_kernel": 9, "dw_tc_kernel": 9, "dw_kernel": 0, "bwd_c_kernel": 9,
-            "bwd_c_gattn_kernel": 9, "fold_kernel": 9}
+            "bwd_c_gattn_kernel": 9, "fold_kernel": 18}
     if hw is None:
         log("  profiler: the fused step's launches by kernel not measured")
     else:
@@ -3537,12 +3772,15 @@ def main() -> int:
     # the shift path's combines run on the tensor cores under bf16: both
     # forward combines of each layer, and (step) both sides of the R = 5
     # combine's backward and dsrc of the R = 3 one; the rasterizer is one
-    # binning and one z-buffer kernel
+    # binning and one z-buffer kernel; (step) the two edge pads of each layer
+    # fold their gradient (fold_kernel); with the bf16 remat defaults the
+    # attention is kept, so the same kernels
     fwd_want = {"combine_fwd_tc_kernel": 18, "combine_fwd_kernel": 0, "bin_kernel": 1,
-                "raster_kernel": 1}
-    for region, want in (("hoig_serve", fwd_want), ("hoig_train", dict(
-            fwd_want, combine_bwd_src_tc_kernel=18, combine_bwd_v_tc_kernel=9,
-            combine_bwd_src_kernel=0, combine_bwd_v_kernel=0))):
+                "raster_kernel": 1, "fold_kernel": 0}
+    step_want = dict(fwd_want, combine_bwd_src_tc_kernel=18, combine_bwd_v_tc_kernel=9,
+                     combine_bwd_src_kernel=0, combine_bwd_v_kernel=0, fold_kernel=18)
+    for region, want in (("hoig_serve", fwd_want), ("hoig_train", step_want),
+                         ("hoig_train_remat", step_want)):
         hw = profile.get(region, {}).get("hand_written")
         if hw is None:
             log(f"  profiler: the launches by kernel of {region} not measured")

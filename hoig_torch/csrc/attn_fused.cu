@@ -43,6 +43,10 @@
 //     back through W_t^T onto the padded frame (conv5_tc_kernel for bf16
 //     weights, entry point hoig_attn_fused_bwd_a_gsrc_tc; conv5_kernel for
 //     f32 ones); fold_kernel folds the margins.
+//   * edge_pad_fold: fold_kernel alone, for any pad and for f32 or bf16
+//     gradients: the backward of the generator's replicate pads (the fc_0
+//     target half's, p = 2, and the shift engine's source, p = 5), in a
+//     fixed order where index_select's backward adds with float atomics.
 //   * bwd_a_dw: dW_t = sum_q src_pad[q + 2 + t] (x) dG[q] from the source
 //     and dG. bf16 source: dw_tc_kernel on the tensor cores (entry point
 //     hoig_attn_fused_bwd_a_dw_tc; its own note below). f32 source:
@@ -724,35 +728,52 @@ bwd_c_gattn_kernel(const float* __restrict__ sdot_part, const float* __restrict_
 // Fold the edge-padded frame's gradient onto the image (the replicate-pad
 // backward): border pixels collect their margin's entries, the columns of a
 // row in ascending order first, then the rows in ascending order (the gsrc
-// projection's; bwd_c_kernel folds in its tile, in the same order).
-__global__ void __launch_bounds__(kThreads)
-fold_kernel(const float* __restrict__ gpad, float* __restrict__ out, long long n, int h, int w,
-            int c) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const int ch = static_cast<int>(i % c);
-  const long long pix = i / c;
-  const int x = static_cast<int>(pix % w);
-  const int y = static_cast<int>((pix / w) % h);
-  const long long bb = pix / ((long long)h * w);
-  const int hp = h + 2 * kPad;
-  const int wp = w + 2 * kPad;
-  const int r_lo = y == 0 ? 0 : y + kPad;
-  const int r_hi = y == h - 1 ? h + 2 * kPad - 1 : y + kPad;
-  const int c_lo = x == 0 ? 0 : x + kPad;
-  const int c_hi = x == w - 1 ? w + 2 * kPad - 1 : x + kPad;
-  float tot = 0.f;
-  for (int r = r_lo; r <= r_hi; ++r) {
-    float row = 0.f;
-    for (int cc = c_lo; cc <= c_hi; ++cc) row = __fadd_rn(row, gpad[((bb * hp + r) * wp + cc) * c + ch]);
-    tot = __fadd_rn(tot, row);
-  }
-  out[i] = tot;
+// projection's; bwd_c_kernel folds in its tile, in the same order), each
+// sum starting from its first entry, in f32, rounded once to T. A block per
+// output pixel, its threads over the channels; p is the pad (kPad for the
+// gsrc projection; 2 and 5 for the generator's edge pads, entry point
+// hoig_edge_pad_fold).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
-cudaError_t launch_fold(const float* gpad, float* out, int b, int h, int w, int c, cudaStream_t s) {
-  const long long n = (long long)b * h * w * c;
-  fold_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(gpad, out, n, h, w, c);
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(const T* __restrict__ gpad, T* __restrict__ out, int h, int w, int c, int p) {
+  // one block per output pixel, its threads over the channels (coalesced)
+  const int pix = blockIdx.x;
+  const int x = pix % w;
+  const int y = (pix / w) % h;
+  const long long bb = pix / (h * w);
+  const int hp = h + 2 * p;
+  const int wp = w + 2 * p;
+  const int r_lo = y == 0 ? 0 : y + p;
+  const int r_hi = y == h - 1 ? hp - 1 : y + p;
+  const int c_lo = x == 0 ? 0 : x + p;
+  const int c_hi = x == w - 1 ? wp - 1 : x + p;
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    float tot = 0.f;
+    for (int r = r_lo; r <= r_hi; ++r) {
+      const T* src = gpad + ((bb * hp + r) * wp + c_lo) * c + ch;
+      float row = to_f32(src[0]);
+      for (int cc = 1; cc <= c_hi - c_lo; ++cc) {
+        row = __fadd_rn(row, to_f32(src[(long long)cc * c]));
+      }
+      tot = r == r_lo ? row : __fadd_rn(tot, row);
+    }
+    out[(long long)pix * c + ch] = from_f32<T>(tot);
+  }
+}
+
+template <typename T>
+cudaError_t launch_fold(const T* gpad, T* out, int b, int h, int w, int c, int p, cudaStream_t s) {
+  const int warps = (c + 31) / 32;
+  const int threads = warps * 32 < kThreads ? warps * 32 : kThreads;
+  fold_kernel<T><<<(unsigned)(b * h * w), threads, 0, s>>>(gpad, out, h, w, c, p);
   return cudaGetLastError();
 }
 
@@ -1491,7 +1512,7 @@ int bwd_a_gsrc(const void* gacc, const void* fy, const void* fx, const void* wy,
                      static_cast<const float*>(wx), dg_, b, h, w, s));
   HOIG_TRY(launch_conv5<true>(dg_, static_cast<const float*>(w0s), gpad_, b, h + 2 * kHalo,
                               w + 2 * kHalo, kF, h + 2 * kPad, w + 2 * kPad, c, -4, s));
-  return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, s);
+  return launch_fold<float>(gpad_, static_cast<float*>(gsrc), b, h, w, c, kPad, s);
 }
 
 // bf16 weights: the projection on the tensor cores, dG split in three
@@ -1506,7 +1527,7 @@ int bwd_a_gsrc_tc(const void* gacc, const void* fy, const void* fx, const void* 
   HOIG_TRY(launch_conv5_tc<true>(dg_, w0s, gpad_, static_cast<float*>(part), b, h + 2 * kHalo,
                                  w + 2 * kHalo, kF, h + 2 * kPad, w + 2 * kPad, c, -4, splits, 0,
                                  s));
-  return launch_fold(gpad_, static_cast<float*>(gsrc), b, h, w, c, s);
+  return launch_fold<float>(gpad_, static_cast<float*>(gsrc), b, h, w, c, kPad, s);
 }
 
 // f32 source: dW as FP32
@@ -1621,6 +1642,22 @@ extern "C" int hoig_attn_fused_bwd_a_dw_tc(const void* src, const void* dg, void
                                            int b, int h, int w, int c, int splits, void* stream) {
   if (bad_dims(b, h, w, c) || splits < 1 || splits > 65535) return cudaErrorInvalidValue;
   return bwd_a_dw_tc(src, dg, dw, part, b, h, w, c, splits, static_cast<cudaStream_t>(stream));
+}
+
+// The generator's edge pads' backward (hoig_torch/ops/attn_fused.py
+// edge_pad): gpad (B, H+2p, W+2p, C) -> out (B, H, W, C), both f32 or both
+// bf16 (is_bf16), NHWC, summed in f32 and rounded once (fold_kernel).
+extern "C" int hoig_edge_pad_fold(const void* gpad, void* out, int b, int h, int w, int c, int p,
+                                  int is_bf16, void* stream) {
+  if (b < 1 || h < 1 || w < 1 || c < 1 || p < 0) return cudaErrorInvalidValue;
+  if ((long long)b * h * w > 0x7fffffff) return cudaErrorInvalidValue;  // blocks: one per pixel
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return launch_fold<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(gpad),
+                                      static_cast<__nv_bfloat16*>(out), b, h, w, c, p, s);
+  }
+  return launch_fold<float>(static_cast<const float*>(gpad), static_cast<float*>(out), b, h, w, c,
+                            p, s);
 }
 
 // The tile constants that hoig_torch/ops/attn_fused.py repeats (TILING) to

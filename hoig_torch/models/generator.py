@@ -20,7 +20,10 @@ and `remat_attn` switches): with `remat` the conv blocks of the encoders and
 decoders recompute their forward in the backward pass
 (`torch.utils.checkpoint`, non-reentrant); the bottleneck's residual blocks
 do so only with `remat_bottleneck` as well, the attention layers only with
-`remat_attn`. Values and state-dict keys do not depend on the switches.
+`remat_attn`. Each rematerialized region keeps its InstanceNorm statistics
+for the recompute, as the JAX package's `in_stats` policy keeps them
+(models/layers.py, `keep_stats`). Values and state-dict keys do not depend
+on the switches.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from hoig_torch.models.layers import (
     SPADEBlock,
     SPADEResidualBlock,
     conv_in_relu,
+    keep_stats,
     upconv_in_relu,
 )
 from hoig_torch.ops.attn_fused import edge_pad, flow_attention_fused, flow_fields
@@ -46,9 +50,11 @@ from hoig_torch.ops.local_combine import local_combine
 
 
 def _run(module: nn.Module, remat: bool, *args):
-    """module(*args), rematerialized in the backward pass when asked."""
+    """module(*args), rematerialized in the backward pass when asked; the
+    recompute takes the forward's InstanceNorm statistics back (`keep_stats`)."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(keep_stats(module), *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return module(*args)
 
 

@@ -51,7 +51,12 @@ The edge-padded margins of the source gradient are folded onto the border
 pixels (the replicate-pad backward) by `_fold_edges` here, and on the card
 by `bwd_c_kernel` in its tiles and by `fold_kernel` for the gsrc
 projection, all in the same order: the margin columns of a row in
-ascending order first, then the rows.
+ascending order first, then the rows. The generator's own replicate pads
+(`edge_pad`) fold their gradient in that order too (`edge_pad_fold`, one
+fold_kernel launch on the card).
+
+An odd channel count runs through each wrapper at the next even count
+(`with_even_channels`): the kernels tile channel pairs.
 """
 
 from __future__ import annotations
@@ -92,6 +97,8 @@ _BWD_A_GSRC_TC_ARGS = [_P] * 10 + [_I] * 5 + [_P]
 _BWD_A_DW_ARGS = [_P] * 4 + [_I] * 6 + [_P]
 # bwd_a_dw_tc: src, dg, dw, part_scratch, b, h, w, c, splits, stream
 _BWD_A_DW_TC_ARGS = [_P] * 4 + [_I] * 5 + [_P]
+# edge_pad_fold: gpad, out, b, h, w, c, p, bf16, stream
+_EDGE_PAD_FOLD_ARGS = [_P] * 2 + [_I] * 6 + [_P]
 _SMS = 132  # the H100's SMs: the split-K factors aim at filling them
 # the kernels' tile constants that the split-K factors count, in the order
 # in which attn_fused.cu's hoig_attn_fused_tiling reports them (chip_smoke.py
@@ -158,12 +165,34 @@ def v_fields(attn: torch.Tensor, ay, ax) -> torch.Tensor:
     return v
 
 
-def edge_pad(x: torch.Tensor, p: int) -> torch.Tensor:
-    """Replicate-pad the two spatial axes of an NHWC tensor by p."""
+def _edge_pad_copy(x: torch.Tensor, p: int) -> torch.Tensor:
     h, w = x.shape[1], x.shape[2]
     rows = torch.arange(-p, h + p, device=x.device).clamp(0, h - 1)
     cols = torch.arange(-p, w + p, device=x.device).clamp(0, w - 1)
     return x.index_select(1, rows).index_select(2, cols)
+
+
+class _EdgePad(torch.autograd.Function):
+    """The replicate pad with a backward that folds in a fixed order
+    (`edge_pad_fold`): index_select's own backward adds the margins with
+    float atomics on the card, in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, p: int):
+        ctx.p = p
+        return _edge_pad_copy(x, p)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return edge_pad_fold(g.contiguous(), ctx.p), None
+
+
+def edge_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """Replicate-pad the two spatial axes of an NHWC tensor by p: an exact
+    copy forward; backward, each border pixel collects its margin's
+    gradient (`edge_pad_fold`), the same bits on every run."""
+    return _EdgePad.apply(x, p)
 
 
 def _fold_axis(x: torch.Tensor, axis: int, p: int) -> torch.Tensor:
@@ -185,6 +214,35 @@ def _fold_edges(gpad: torch.Tensor, p: int = PAD) -> torch.Tensor:
     """Gradient of the edge-padded frame (B, H+2p, W+2p, C) -> of the image
     (B, H, W, C): columns first, then rows."""
     return _fold_axis(_fold_axis(gpad, 2, p), 1, p)
+
+
+def edge_pad_fold_reference(gpad: torch.Tensor, p: int) -> torch.Tensor:
+    """The replicate pad's backward, plain: `_fold_edges` of the f32
+    gradient, rounded once to its dtype (the kernel's arithmetic)."""
+    return _fold_edges(gpad.float(), p).to(gpad.dtype)
+
+
+def edge_pad_fold(gpad: torch.Tensor, p: int) -> torch.Tensor:
+    """The gradient of an edge-padded NHWC frame (B, H+2p, W+2p, C), f32 or
+    bf16, folded onto the image (B, H, W, C) in its dtype: the plain version
+    on the CPU; on the card one launch of fold_kernel (entry point
+    `hoig_edge_pad_fold`, counted as `edge_pad_fold`), bit-equal to it."""
+    if gpad.device.type == "cpu":
+        return edge_pad_fold_reference(gpad, p)
+    _cuda.require_cuda(gpad)
+    if gpad.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"edge_pad_fold takes f32 or bf16, got {gpad.dtype}")
+    if gpad.dim() != 4 or not gpad.is_contiguous():
+        raise ValueError(f"edge_pad_fold takes a contiguous (B, H, W, C) frame, got "
+                         f"{tuple(gpad.shape)}")
+    b, hp, wp, c = gpad.shape
+    h, w = hp - 2 * p, wp - 2 * p
+    if p < 0 or h < 1 or w < 1 or b < 1 or c < 1:
+        raise ValueError(f"edge_pad_fold: frame {tuple(gpad.shape)} with pad {p}")
+    out = torch.empty((b, h, w, c), dtype=gpad.dtype, device=gpad.device)
+    _launch("hoig_edge_pad_fold", "edge_pad_fold", _EDGE_PAD_FOLD_ARGS,
+            _ptrs(gpad, out) + [b, h, w, c, p, int(gpad.dtype == torch.bfloat16)])
+    return out
 
 
 def _conv_weight(w0s: torch.Tensor) -> torch.Tensor:
@@ -338,13 +396,39 @@ def _check(name: str, tensors: dict, dtype: torch.dtype, shapes: dict) -> None:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shapes[key]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    # what the kernels tile (attn_fused.cu, bad_dims): channel pairs, and the
-    # batch on the 5x5 products' grid z axis
+    # what the kernels tile (attn_fused.cu, bad_dims): channel pairs (the
+    # wrappers run an odd count through with_even_channels), and the batch
+    # on the 5x5 products' grid z axis
     b, c = shapes["src"][0], shapes["src"][3]
     if c < 2 or c % 2:
         raise ValueError(f"{name} needs an even channel count, got {c}")
     if b > 65535:
         raise ValueError(f"{name} takes at most 65535 images per launch, got {b}")
+
+
+# per wrapper: {argument position: its channel axis}, and (output position
+# or None for a lone tensor, its channel axis)
+_CHANNEL_AXES = {"attn_fused_fwd": ({0: 3, 2: 1}, (0, 3)),
+                 "attn_fused_bwd_c": ({0: 3, 6: 3}, (0, 3)),
+                 "attn_fused_bwd_a_gsrc": ({5: 1}, (0, 3)),
+                 "attn_fused_bwd_a_dw": ({0: 3}, (None, 1))}
+
+
+def with_even_channels(name: str, fn, *args):
+    """fn, the B4 wrapper `name` or its plain version, on arguments of an
+    odd channel count C, run at C + 1: one zero channel appended to the
+    source, the source-half weights and g_out, and the per-channel output
+    (out, the source gradient, dW) cut back to C. A zero channel adds an
+    exact zero to every channel sum, so the other outputs are those of C
+    channels up to the order of the sums; the kernels tile channel pairs."""
+    ins, (pos, axis) = _CHANNEL_AXES[name]
+    args = [F_.pad(a, [0, 0] * (a.dim() - 1 - ins[i]) + [0, 1]).contiguous() if i in ins else a
+            for i, a in enumerate(args)]
+    res = fn(*args)
+    cut = lambda t: t.narrow(axis, 0, t.shape[axis] - 1).contiguous()
+    if pos is None:
+        return cut(res)
+    return tuple(cut(t) if i == pos else t for i, t in enumerate(res))
 
 
 def _shapes(b, h, w, c) -> dict:
@@ -413,6 +497,9 @@ def attn_fused_fwd(src, acc0, w0s, w1, b1, fy_rel, fx_rel, wy, wx):
     if src.device.type == "cpu":
         return attn_fused_fwd_reference(src, acc0, w0s, w1, b1, fy_rel, fx_rel, wy, wx)
     b, h, w, c = src.shape
+    if c % 2:
+        return with_even_channels("attn_fused_fwd", attn_fused_fwd, src, acc0, w0s, w1, b1,
+                                  fy_rel, fx_rel, wy, wx)
     _check("attn_fused_fwd", dict(src=src, acc0=acc0, w0s=w0s, w1=w1, b1=b1, fy=fy_rel,
                                   fx=fx_rel, wy=wy, wx=wx), src.dtype, _shapes(b, h, w, c))
     f32 = dict(dtype=torch.float32, device=src.device)
@@ -438,6 +525,9 @@ def attn_fused_bwd_c(src, fy_rel, fx_rel, wy, wx, attn, g_out):
     if src.device.type == "cpu":
         return attn_fused_bwd_c_reference(src, fy_rel, fx_rel, wy, wx, attn, g_out)
     b, h, w, c = src.shape
+    if c % 2:
+        return with_even_channels("attn_fused_bwd_c", attn_fused_bwd_c, src, fy_rel, fx_rel, wy,
+                                  wx, attn, g_out)
     _check("attn_fused_bwd_c", dict(src=src, fy=fy_rel, fx=fx_rel, wy=wy, wx=wx, attn=attn,
                                     g_out=g_out), src.dtype, _shapes(b, h, w, c))
     f32 = dict(dtype=torch.float32, device=src.device)
@@ -461,6 +551,9 @@ def attn_fused_bwd_a_gsrc(g_acc, fy_rel, fx_rel, wy, wx, w0s):
         return attn_fused_bwd_a_gsrc_reference(g_acc, fy_rel, fx_rel, wy, wx, w0s)
     b, h, w, _ = g_acc.shape
     c = w0s.shape[1]
+    if c % 2:
+        return with_even_channels("attn_fused_bwd_a_gsrc", attn_fused_bwd_a_gsrc, g_acc, fy_rel,
+                                  fx_rel, wy, wx, w0s)
     _check("attn_fused_bwd_a_gsrc", dict(g_acc=g_acc, fy=fy_rel, fx=fx_rel, wy=wy, wx=wx,
                                          w0s=w0s), w0s.dtype, _shapes(b, h, w, c))
     f32 = dict(dtype=torch.float32, device=g_acc.device)
@@ -496,6 +589,8 @@ def attn_fused_bwd_a_dw(src, dg):
     if src.device.type == "cpu":
         return attn_fused_bwd_a_dw_reference(src, dg)
     b, h, w, c = src.shape
+    if c % 2:
+        return with_even_channels("attn_fused_bwd_a_dw", attn_fused_bwd_a_dw, src, dg)
     _check("attn_fused_bwd_a_dw", dict(src=src, dg=dg), src.dtype, _shapes(b, h, w, c))
     f32 = dict(dtype=torch.float32, device=src.device)
     dw = torch.empty((K2, c, F), **f32)

@@ -335,6 +335,17 @@ def kernel_launches(cfg, b: int, leg: str) -> dict:
     return out
 
 
+def edge_pad_folds(cfg, leg: str) -> int:
+    """Launches of the edge-pad fold (a data-movement kernel, outside the
+    FLOP walk) in one serving call (none: no backward) or training step: one
+    per attention layer for the fc_0 target half's pad, and one more for the
+    shift engine's padded source."""
+    if leg != "train":
+        return 0
+    per_layer = 2 if cfg.corner_engine == "shift" else 1
+    return per_layer * len(attn_layers(cfg.image_size, cfg.conv_dim, cfg.repeat_num))
+
+
 def leg_flops(cfg, b: int, leg: str) -> dict:
     """FLOPs of one serving call ("serve") or training step ("train") at
     batch b: {"aten": {subnet: {model, executed}}, "kernels": {counter:

@@ -238,12 +238,15 @@ def summarize_region(events, lo: float, hi: float, n: int, gaps: int = 10) -> di
     total = sum(v[0] for v in by_name.values()) / n / 1e3
     wall = (hi - lo) / n / 1e3
     classes: dict = {}
+    class_kernels: dict = {}
     for k, v in by_name.items():
         classes[kernel_class(k)] = classes.get(kernel_class(k), 0.0) + v[0] / n / 1e3
+        class_kernels[kernel_class(k)] = class_kernels.get(kernel_class(k), 0) + v[1]
     table = sorted(({"name": k[:90], "ms": v[0] / n / 1e3, "count": v[1] // n}
                     for k, v in by_name.items()), key=lambda r: -r["ms"])
     return dict(device_ms=total, wall_ms=wall, busy_share=total / wall,
                 kernels_per_call=sum(v[1] for v in by_name.values()) // n, classes=classes,
+                class_kernels={k: v // n for k, v in class_kernels.items()},
                 kernels=table[:60], hand_written=hand_written(by_name, n),
                 idle_gaps=idle_gaps(events, lo, hi, gaps))
 

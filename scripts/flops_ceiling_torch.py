@@ -67,7 +67,9 @@ def check_leg(tcfg, batch_size: int, device, env=None) -> dict:
     """One serving call and one training step of the program at this batch
     under FlopCounterMode and the launch counters, against the walk. Raises
     if the aten counts differ by more than CHECK_REL of the walk's, or (on
-    the card) if a hand-written kernel's launches differ from the walk's."""
+    the card) if a hand-written kernel's launches differ from the walk's
+    (with the conditioning's B2 and B3 and the training step's edge-pad
+    folds)."""
     import torch
     from profile_step_torch import build_program
 
@@ -98,6 +100,8 @@ def check_leg(tcfg, batch_size: int, device, env=None) -> dict:
         if on_card:
             expect = {k: v["launches"] for k, v in w[leg]["kernels"].items()}
             expect.update(rasterizer=1, table_gather=2)
+            if flops.edge_pad_folds(tcfg, leg):
+                expect["edge_pad_fold"] = flops.edge_pad_folds(tcfg, leg)
             if launches != expect:
                 raise RuntimeError(f"{leg}: launches {launches}, the walk's {expect}")
             row["launches"] = launches

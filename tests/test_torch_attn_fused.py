@@ -290,9 +290,9 @@ class _FakeLibrary:
 @pytest.mark.parametrize("case", ["odd_channels", "failed_launch", "failed_bwd_c",
                                   "failed_combine_bwd"])
 def test_refused_launch_raises(case, monkeypatch):
-    """A launch the kernels cannot take, or one that returns a CUDA error,
-    raises a RuntimeError or ValueError naming the kernel and counts no
-    launch. The card is stood in for: device checks pass, the entry point
+    """A launch that returns a CUDA error raises a RuntimeError naming the
+    kernel and counts no launch; an odd channel count is launched at the
+    next even one. The card is stood in for: device checks pass, the entry point
     returns cudaErrorInvalidValue (1), the error string comes from the
     library that holds the kernel. Each entry point gets as many arguments
     as its declared types (bwd_c: 10 pointers, then B, H, W, C, its channel
@@ -319,9 +319,12 @@ def test_refused_launch_raises(case, monkeypatch):
     b, h, w = 1, 4, 4
     fields = [meta(b, h, w) for _ in range(4)]
     if case == "odd_channels":
-        with pytest.raises(ValueError, match="even channel count, got 3"):
+        # an odd channel count reaches the kernel at the next even one (one
+        # zero channel, tests/test_torch_edge_pad.py)
+        with pytest.raises(RuntimeError, match="attn_fused_bwd_a_dw kernel launch failed"):
             af.attn_fused_bwd_a_dw(meta(b, h, w, 3), meta(b, h + 6, w + 6, af.F))
-        assert asked == []
+        assert asked == [("kernel", "attn_fused"), ("error", "attn_fused")]
+        assert passed[0][4:8] == (b, h, w, 4)
     elif case == "failed_launch":
         with pytest.raises(RuntimeError, match=r"attn_fused_fwd kernel launch failed: CUDA error 1 "
                                                r"\(invalid argument\)"):

@@ -181,10 +181,17 @@ def _run_worker(monkeypatch, capsys, tmp_path, leg, extra=()):
 
 @pytest.mark.parametrize("leg", ["train_bf16", *bench_torch.DIAG_LEGS])
 def test_each_leg_runs_through_the_worker(monkeypatch, capsys, tmp_path, leg):
+    """The leg's program runs its first step or call for real; its timed
+    loops are stood in by a consistent pair of times (the CPU's wall clock
+    under parallel test workers can put any pair past check_timing's
+    refusal; blocked_ms and pipelined_ms are held on a fake clock below)."""
+    monkeypatch.setattr(bench_torch, "blocked_ms", lambda run, finish: 250.0)
+    monkeypatch.setattr(bench_torch, "pipelined_ms", lambda run, finish, k: 200.0)
     details = _run_worker(monkeypatch, capsys, tmp_path, leg)
     spec = bench_torch.leg_spec(leg, "shift", 48, 8, 2, 1)
     train = spec["kind"] == "train"
     unit = "step_ms" if train else "ms"
+    assert (details[f"{leg}_{unit}"], details[f"{leg}_{unit}_blocked"]) == (200.0, 250.0)
     for key in ("images_per_sec_per_chip", unit, unit + "_blocked", "first_step_s",
                 "kernel_build_s", "flops_executed", "flops_model", "mfu", "mfu_peak",
                 "tflops_per_sec", "launches", "launches_walk", "peak_mem_mib", "device", "batch"):
@@ -211,6 +218,38 @@ def test_each_leg_runs_through_the_worker(monkeypatch, capsys, tmp_path, leg):
             156e12 * 0.3 / (3 * per_image))
     else:
         assert "baseline_estimate" not in details
+
+
+class FakeClock:
+    """perf_counter for bench_torch: each run() takes `run_s` (the first one
+    `first_s` more), each finish() `sync_s`."""
+
+    def __init__(self, run_s, sync_s, first_s=0.0):
+        self.t, self.run_s, self.sync_s, self.first_s = 0.0, run_s, sync_s, first_s
+
+    def perf_counter(self):
+        return self.t
+
+    def run(self):
+        self.t += self.run_s + self.first_s
+        self.first_s = 0.0
+        return self.t
+
+    def finish(self, _):
+        self.t += self.sync_s
+
+
+@pytest.mark.parametrize("k", [1, 10])
+def test_timed_loops_on_a_fake_clock(monkeypatch, k):
+    """blocked_ms: the fastest synchronized run (run + sync); pipelined_ms:
+    the difference of a 2k-run and a k-run loop over k, best of 2 each, so
+    the one synchronization and a slow first run both drop out."""
+    clock = FakeClock(run_s=0.007, sync_s=0.003, first_s=0.1)
+    monkeypatch.setattr(bench_torch, "time", type("T", (), {"perf_counter": clock.perf_counter}))
+    assert bench_torch.blocked_ms(clock.run, clock.finish) == pytest.approx(10.0)
+    clock.first_s = 0.1
+    assert bench_torch.pipelined_ms(clock.run, clock.finish, k) == pytest.approx(7.0)
+    assert clock.t == pytest.approx(2 * 0.1 + 3 * 0.010 + 6 * k * 0.007 + 4 * 0.003)
 
 
 @pytest.mark.parametrize("fake", ["timing", "share"])
@@ -274,17 +313,19 @@ def test_leg_specs_are_bench_py_legs():
             dex["ccfg"].mano_flat_hand_mean) == ("fxfy", 45, False)
     assert (dex["camera"], dex["with_masks"]) == ("fxfy", False)
     assert specs["train_fp32"]["tcfg"] == trainer.TrainConfig()
-    # the walk's launches per step: 18 / 18 / 9 per shift step at either batch
+    # the walk's launches per step: 18 / 18 / 9 per shift step at either
+    # batch, and the backward of the attention's 18 edge pads
     shift = dict(local_combine_tc=18, local_combine_bwd_src_tc=18, local_combine_bwd_v_tc=9,
-                 rasterizer=1, table_gather=2)
+                 rasterizer=1, table_gather=2, edge_pad_fold=18)
     for leg in ("train_bf16", "train_bf16_b8", "train_bf16_dexycb"):
         assert bench_torch.expected_launches(specs[leg]) == shift
     assert bench_torch.expected_launches(specs["gen_fwd"]) == dict(
         local_combine_tc=18, rasterizer=1, table_gather=2)
-    assert bench_torch.expected_launches(specs["train_fp32"]) == dict(rasterizer=1, table_gather=2)
+    assert bench_torch.expected_launches(specs["train_fp32"]) == dict(
+        rasterizer=1, table_gather=2, edge_pad_fold=9)
     fused = bench_torch.expected_launches(bench_torch.leg_spec("train_bf16", "pallas"))
     assert fused == dict(attn_fused_fwd_tc=9, attn_fused_bwd_c=9, attn_fused_bwd_a_gsrc_tc=9,
-                         attn_fused_bwd_a_dw_tc=9, rasterizer=1, table_gather=2)
+                         attn_fused_bwd_a_dw_tc=9, rasterizer=1, table_gather=2, edge_pad_fold=9)
     with pytest.raises(SystemExit):
         bench_torch.leg_spec("train_bf16_b16")
 
