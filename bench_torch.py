@@ -188,14 +188,18 @@ def expected_launches(spec: dict) -> dict:
     """The kernel launches per step (per call for gen_fwd) that the FLOP walk
     expects: its attention kernels, plus the conditioning's one rasterizer
     call and two table gathers and, in a training step, the attention's
-    edge-pad folds (flops.edge_pad_folds)."""
+    edge-pad folds (flops.edge_pad_folds) and the gather engine's corner
+    scatters (flops.scatter_rows_launches)."""
     from hoig_torch.utils import flops
 
     tcfg, kind = spec["tcfg"], spec["kind"]
     walk = flops.kernel_launches(tcfg, spec["batch"], kind)
     out = dict({k: len(v) for k, v in walk.items()}, rasterizer=1, table_gather=2)
-    folds = flops.edge_pad_folds(tcfg, kind)
-    return dict(out, edge_pad_fold=folds) if folds else out
+    for name, n in (("edge_pad_fold", flops.edge_pad_folds(tcfg, kind)),
+                    ("scatter_rows", flops.scatter_rows_launches(tcfg, kind))):
+        if n:
+            out[name] = n
+    return out
 
 
 def blocked_ms(run, finish, n: int = 3) -> float:

@@ -88,10 +88,23 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      kept) for the memory peak; (b) the same first step (fresh weights from
      seed 0) twice with the remat defaults and (c) once with remat off:
      every G and D gradient and updated weight bit-equal; (d) the
-     determinism probe: one step with the shift engine (remat defaults) and
-     with the fused engine (remat off; remat + remat_attn) under
-     torch.use_deterministic_algorithms(True, warn_only=True), printing
-     every op it warns about, none allowed;
+     determinism probe: one step with the shift engine (remat defaults),
+     with the fused engine (remat off; remat + remat_attn) and the fp32
+     step of (e) under torch.use_deterministic_algorithms(True,
+     warn_only=True), printing every op it warns about, none allowed; (e)
+     the fp32 step as the drivers run it (TrainConfig(): f32, gather
+     engine, full remat) at batch 8: one step from launch counters at 0
+     (1 / 2 / 9 / 9 launches of B2 / B3 / the edge-pad fold / scatter_rows,
+     the gather engine's one corner gather per layer transposed in a fixed
+     order) with the 9 layers' corner gradients recorded; scatter_rows held
+     on them bit-equal to its plain version and to itself, timed beside it,
+     one index_add_ and the 72 torch.gather backward passes a layer that it
+     replaced (that backward also run twice on the same inputs, the
+     elements that differ counted); then on ragged shapes (C from 1 to 512, indices outside the
+     rows, one row, no entry, an unaligned base, f32 and bf16) and through
+     GatherRows; then the same first step twice and once with remat off,
+     every G and D gradient and updated weight bit-equal (cuDNN
+     deterministic, TF32 off);
   8. one profiler window over two serving calls and one training step with
      each engine, and one shift step with the bf16 remat defaults, splits
      the device time of each by kernel, and asserts 9 launches of dg_kernel,
@@ -132,7 +145,9 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      2 / 18) and its collectives are counted (the gate's gloo broadcast, the
      G and D gradient all-reduces, the metrics' all-reduce); the two
      one-process steps bit-equal, and the data-parallel step's G and D
-     gradients and updated weights bit-equal to theirs; the all-reduce of
+     gradients and updated weights bit-equal to theirs; the fp32 batch-8
+     step of phase 7e through DataParallel bit-equal to phase 7e's
+     one-process step; the all-reduce of
      G's and D's flat f32 gradients timed; (b) `python -m torch.distributed.run
      --standalone --nproc_per_node 1 train_torch.py` for one epoch of 3
      synthetic steps at full width: exit 0, its epoch-1 checkpoint, its
@@ -163,12 +178,13 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      backward_depth_map, the texture gradient by autograd of the sampling):
      forward + backward time, peak memory and launches at 256 px (512^2
      rasters), vertex and texture gradients card vs CPU on one sample at 64
-     px within 1e-5 of their max (RGB vertex gradient also rtol 1e-3; the
-     texture gradient's float atomics add in no fixed order); (d)
-     block_extractor and local_attn_reshape at 32^2 x 512, kernel 3,
-     forward and gradients card vs CPU; (e) compute_uv_image on the hand
-     atlas at uv_size 224: the reference's 2,000 Adam steps timed with the
-     final loss, and 50 steps on the card and the CPU within 1e-4; (f) the
+     px within 1e-5 of their max (RGB vertex gradient also rtol 1e-3), and
+     the vertex and texture gradients bit-equal on a second run on the
+     card; (d) block_extractor and local_attn_reshape at 32^2 x 512, kernel
+     3, forward and gradients card vs CPU, and bit-equal on a second run;
+     (e) compute_uv_image on the hand atlas at uv_size 224: the reference's
+     2,000 Adam steps timed with the final loss, and 50 steps on the card
+     (twice, bit-equal) and the CPU within 1e-4; (f) the
      resume from a JAX epoch: a full-width bf16 state after two steps (D
      gated on the second) laid out as a JAX run's trees, loaded into a
      fresh state by checkpoints.load_jax_state, weights, moments and Adam
@@ -182,9 +198,11 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      with the drivers' fp32 remat (full; 2 steps) and for the bf16 batch-4
      fused serving call (2 calls): device busy share, operator classes, top
      kernels, the 10 longest idle gaps and the peak memory from its JSON
-     line, its launch counters per step or call (1 / 2 of B2 / B3, and 9 of
-     B4-fwd for the fused call) and, from its profile, bin_kernel and
-     raster_kernel once and gather_kernel twice (the fused call also
+     line, its launch counters per step or call (1 / 2 of B2 / B3, the
+     step 9 of the edge-pad fold and of scatter_rows, and 9 of B4-fwd for
+     the fused call) and, from its profile, bin_kernel and raster_kernel
+     once and gather_kernel twice (the step also fold_kernel and
+     scatter_rows_kernel 9 times; the fused call also
      conv5_tc_kernel and fwd_pixel_kernel 9 times and slice_sum_kernel once
      per layer whose product splits), no other hand-written kernel;
      scripts/attn_ab_torch.py's `run` over the three layer shapes and three
@@ -227,7 +245,7 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      and a training step's edge-pad folds) and phases 5 / 6e / 7's counts
      (shift steps at b4 and b8 18 / 18 / 9 / 1 / 2 / 18, the serving call
      18 / 1 / 2, the fused step 9 of each B4 kernel and 1 / 2 / 9, the fp32
-     gather step 1 / 2 / 9); one line per leg
+     gather step 1 / 2 / 9 / 9 scatter_rows); one line per leg
      (images/s, step ms, synchronized ms, share of peak, launches, peak
      MiB), the headline's step beside phase 7's with the same remat and
      gen_fwd's call beside phase 5's, as information;
@@ -274,6 +292,9 @@ KERNELS = {
     # which XLA transposes itself (the fc_0 target half's pad; the shift
     # engine's source pad at :213)
     "edge_pad_fold": ("hoig_torch/csrc/attn_fused.cu", "hoig_tpu/models/generator.py:139"),
+    # no TPU kernel: the backward of the JAX package's jnp.take_along_axis
+    # (the gather engine's corners), which XLA transposes itself
+    "scatter_rows": ("hoig_torch/csrc/table_gather.cu", "hoig_tpu/models/generator.py:326"),
 }
 # the four B4 wrappers, and the counter each one's bf16 launch adds to: under
 # bf16, B4-fwd's phase A, the gsrc projection and dW run on the tensor cores
@@ -299,7 +320,14 @@ FUSED_LAUNCHES_PER_STEP = {**{k: 9 for k in FUSED_BF16.values()}, "rasterizer": 
                            "table_gather": 2, "edge_pad_fold": 9}
 # under remat_attn the backward recomputes each layer's forward
 FUSED_LAUNCHES_PER_STEP_REMAT = dict(FUSED_LAUNCHES_PER_STEP, attn_fused_fwd_tc=18)
+# the fp32 step as the drivers run it (TrainConfig(): f32, gather engine,
+# full remat): no attention kernel; each layer's 36 corners are one row
+# gather, whose backward is one scatter_rows launch
+FP32_LAUNCHES_PER_STEP = {"rasterizer": 1, "table_gather": 2, "edge_pad_fold": 9,
+                          "scatter_rows": 9}
 IMAGE, BATCH = 256, 4
+# the reference's own training batch (scripts/train_hov3_ddp.sh: 8 a card)
+FP32_BATCH = 8
 # B4 kernel vs plain version on the card. f32 inputs: within 1e-5 of the
 # output's largest magnitude (only the order of the f32 sums differs).
 # bf16 inputs: `out` and bwd-c's source gradient within one bf16 ulp (2^-7)
@@ -392,9 +420,11 @@ def recording(rec: Recorder):
     import hoig_torch.ops.attn_fused as af
     import hoig_torch.ops.local_combine as lc
     import hoig_torch.ops.rasterizer_cuda as rc
+    import hoig_torch.ops.table_gather as tg
 
     sites = [(af, name, name) for name in (*FUSED, "edge_pad_fold")] + [
              (gen, "local_combine", "local_combine_tc"),
+             (tg, "scatter_rows", "scatter_rows"),
              (lc, "local_combine_backward", "local_combine_backward"),
              (cond, "rasterize_fim_wim_auto", "rasterizer"),
              (rc, "gather_rows", "table_gather"),
@@ -886,6 +916,151 @@ def check_edge_pad_fold(calls) -> dict:
                 library="torch.ops.aten.replication_pad2d_backward")
 
 
+def _gather_backward_before(val, idx, n: int):
+    """What scatter_rows replaced on the gather engine's step: each of a
+    layer's 36 corners gathered twice by torch.gather, whose backward is a
+    zero-filled source-sized gradient and a scatter_add_ (float atomics)
+    each, added up by autograd: 72 of each a layer, on the same gradients."""
+    import torch
+
+    e, c = val.shape[1], val.shape[2]
+    g, i = val.reshape(e // n, n, c), idx.reshape(e // n, n)
+    total = None
+    for j in range(e // n):
+        ij = i[j][None, :, None].expand(1, n, c)
+        for _ in range(2):
+            part = torch.zeros((1, n, c), dtype=val.dtype, device=val.device).scatter_add_(
+                1, ij, g[j][None])
+            total = part if total is None else total + part
+    return total
+
+
+def check_scatter_rows(calls) -> dict:
+    """scatter_rows on the fp32 step's recorded (gradient, indices, rows) of
+    the 9 attention layers: bit-equal to its plain version and to itself on
+    a second call; timed (its stable sort included) beside the plain
+    version, one index_add_ over the same entries (float atomics) and the
+    72 gathers' backward that it replaced (_gather_backward_before), which
+    is also run twice on the same inputs and the elements that differ
+    counted."""
+    import torch
+
+    from hoig_torch.ops.table_gather import scatter_rows, scatter_rows_reference
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, replaced_ms=0.0, bytes=0.0)
+    shapes = {}
+    # what the replaced backward does on the same inputs twice (information:
+    # float atomics need not differ on every call)
+    moved = dict(elements=0, of=0, layers=0)
+    for (val, idx, n), _ in calls:
+        b, e, c = val.shape
+        what = f"{tuple(val.shape)} into {n} rows"
+        before = _gather_backward_before(val, idx, n)
+        diff = int((before != _gather_backward_before(val, idx, n)).sum())
+        moved["elements"] += diff
+        moved["of"] += before.numel()
+        moved["layers"] += diff > 0
+        del before
+        check(b == 1 and e % n == 0, f"scatter_rows: recorded {what}")
+        out = scatter_rows(val, idx, n)
+        check(torch.equal(out, scatter_rows_reference(val, idx, n)),
+              f"scatter_rows is not bit-equal to its plain version at {what}")
+        check(torch.equal(out, scatter_rows(val, idx, n)),
+              f"scatter_rows gave other bits on a second call at {what}")
+        rows = idx.reshape(-1)
+        flat = val.reshape(-1, c)
+        tot["bytes"] += (val.numel() + out.numel()) * val.element_size() + idx.numel() * 8
+        tot["ms"] += device_ms(lambda: scatter_rows(val, idx, n))
+        tot["plain_ms"] += device_ms(lambda: scatter_rows_reference(val, idx, n), reps=3,
+                                     behind_sleep=False)
+        tot["library_ms"] += device_ms(lambda: torch.zeros(
+            (n, c), dtype=val.dtype, device=val.device).index_add_(0, rows, flat))
+        tot["replaced_ms"] += device_ms(lambda: _gather_backward_before(val, idx, n), reps=3,
+                                        behind_sleep=False)
+        key = f"{e // n} x {n} x {c}"
+        shapes[key] = shapes.get(key, 0) + 1
+    bnd, by = bound_ms(tot["bytes"], 0.0)
+    log(f"  scatter_rows: {len(calls)} recorded layers (corners x rows x channels: "
+        + ", ".join(f"{k} x{v}" for k, v in shapes.items()) + ") bit-equal to the plain version "
+        f"and to itself; kernel (sort included) {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+        f"ms, index_add_ {tot['library_ms']:.4f} ms, torch.gather's backward as the step ran it "
+        f"before (72 a layer) {tot['replaced_ms']:.4f} ms, bound {bnd:.4f} ms ({by}; "
+        f"{tot['bytes'] / 1e9:.3f} GB); that backward called twice on the same inputs: "
+        f"{moved['elements']} of {moved['of']} elements differ, in {moved['layers']} of "
+        f"{len(calls)} layers")
+    return dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bnd,
+                bound_by=by, library_ms=tot["library_ms"], library="torch.Tensor.index_add_",
+                replaced_ms=tot["replaced_ms"],
+                replaced="torch.gather's backward, 72 a layer (zeros + scatter_add_ + add)",
+                replaced_repeat_differs=moved)
+
+
+# scatter_rows off the main path's shapes: (B, E, C, rows), odd and narrow
+# channel counts (the texture sampler's 3, the depth backward's 9), more
+# entries than rows and fewer
+SCATTER_SHAPES = ((2, 300, 1, 40), (1, 257, 3, 500), (3, 1000, 7, 11), (2, 999, 9, 64),
+                  (1, 4000, 128, 300), (2, 513, 130, 97), (1, 64, 512, 5))
+
+
+def check_scatter_ragged() -> None:
+    """scatter_rows on SCATTER_SHAPES with indices outside [0, rows) mixed
+    in, f32 and bf16, and on edge cases (every entry on one row, no entry at
+    all, a base two bytes off 16-byte alignment, the pinned order [1e8, 1,
+    -1e8] whose f32 sum is exactly 0): bit-equal to the plain version and to
+    itself; GatherRows' forward bit-equal to torch.gather and its backward
+    one scatter_rows launch."""
+    import torch
+
+    from hoig_torch.ops import _cuda
+    from hoig_torch.ops.table_gather import (gather_rows_nhwc, scatter_rows,
+                                             scatter_rows_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def held(val, idx, n, what):
+        out = scatter_rows(val, idx, n)
+        check(torch.equal(out, scatter_rows_reference(val, idx, n)),
+              f"scatter_rows is not bit-equal to its plain version at {what}")
+        check(torch.equal(out, scatter_rows(val, idx, n)),
+              f"scatter_rows gave other bits on a second call at {what}")
+        return out
+
+    for b, e, c, n in SCATTER_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            val = torch.randn(b, e, c, device="cuda", generator=gen).to(dtype)
+            idx = torch.randint(-2, n + 2, (b, e), device="cuda", generator=gen)
+            held(val, idx, n, f"{(b, e, c, n)} {dtype}")
+    val = torch.randn(1, 5000, 9, device="cuda", generator=gen)
+    one = held(val, torch.full((1, 5000), 3, device="cuda"), 7, "every entry on one row")
+    check(not one[:, :3].any() and not one[:, 4:].any(), "scatter_rows filled an empty row")
+    none = held(val[:, :0], torch.zeros((1, 0), dtype=torch.long, device="cuda"), 7, "no entry")
+    check(not none.any(), "scatter_rows without entries is not 0")
+    flat = torch.randn(1 + 2 * 300 * 16, device="cuda", generator=gen).bfloat16()
+    held(flat[1:].view(2, 300, 16), torch.randint(0, 50, (2, 300), device="cuda", generator=gen),
+         50, "a bf16 base 2 bytes off alignment")
+    pinned = torch.tensor([[[1e8], [1.0], [-1e8]]], device="cuda")
+    check(float(held(pinned, torch.zeros((1, 3), dtype=torch.long, device="cuda"), 1,
+                     "the pinned order").item()) == 0.0, "scatter_rows added [1e8, 1, -1e8] "
+          "in another order")
+    src = torch.randn(2, 50, 9, device="cuda", generator=gen).requires_grad_()
+    idx = torch.randint(0, 50, (2, 400), device="cuda", generator=gen)
+    out = gather_rows_nhwc(src, idx)
+    check(torch.equal(out, torch.gather(src, 1, idx[..., None].expand(-1, -1, 9))),
+          "GatherRows' forward is not torch.gather's")
+    g = torch.randn(out.shape, device="cuda", generator=gen)
+    _cuda.reset_launch_counts()
+    out.backward(g)
+    check(_cuda.launch_counts() == {"scatter_rows": 1},
+          f"GatherRows' backward launched {_cuda.launch_counts()}")
+    check(torch.equal(src.grad, scatter_rows_reference(g, idx, 50)),
+          "GatherRows' backward is not the plain scatter")
+    log(f"  scatter_rows ragged: {len(SCATTER_SHAPES)} shapes (C in "
+        f"{sorted({s[2] for s in SCATTER_SHAPES})}, indices outside the rows mixed in), f32 and "
+        "bf16, every entry on one row, no entry, an unaligned bf16 base, the pinned order "
+        "[1e8, 1, -1e8] -> 0: bit-equal to the plain version and to itself; GatherRows: "
+        "torch.gather's forward, one scatter_rows launch backward")
+
+
 def check_ragged_shapes() -> None:
     """Each kernel against its plain version on small shapes its wrapper
     takes but the main path does not give it: partial pixel tiles and
@@ -1105,6 +1280,22 @@ def train_config(engine: str, **remat):
                        corner_engine=engine, compute_dtype=torch.bfloat16, **remat)
 
 
+def fp32_config(**kw):
+    """The training configuration the drivers run without --bf16, at full
+    width: TrainConfig()'s defaults (f32, gather engine, full remat)."""
+    from hoig_torch.train.trainer import TrainConfig
+
+    return TrainConfig(image_size=IMAGE, **kw)
+
+
+def fp32_batch(env):
+    """A synthetic batch of FP32_BATCH on the card."""
+    from hoig_torch.data.synthetic import synthetic_batch
+    from hoig_torch.train.model_api import batch_as_torch
+
+    return batch_as_torch(synthetic_batch(FP32_BATCH, env["obj_verts"], image_size=IMAGE), "cuda")
+
+
 def build_step(env, ccfg, tcfg):
     """A fresh training state (weights from seed 0) and its step function."""
     import torch
@@ -1113,7 +1304,7 @@ def build_step(env, ccfg, tcfg):
     from hoig_torch.train.trainer import build_networks, init_state, make_train_step
 
     state = init_state(*build_networks(tcfg, device="cuda", seed=0), tcfg)
-    vgg = init_vgg(seed=2, compute_dtype=torch.bfloat16, device="cuda")
+    vgg = init_vgg(seed=2, compute_dtype=tcfg.compute_dtype, device="cuda")
     return state, make_train_step(vgg, env["tables"], env["mano_params"], ccfg, tcfg)
 
 
@@ -1264,7 +1455,9 @@ def determinism_probe(env, ccfg, batch, out_dir: Path) -> dict:
     """Phase 7 (d): one bf16 step (fresh weights) with each engine under
     torch.use_deterministic_algorithms(True, warn_only=True): the shift
     engine with the remat defaults, the fused engine with remat off and with
-    remat + remat_attn. Prints every op the setting names (as a Python
+    remat + remat_attn; and the fp32 step as the drivers run it
+    (TrainConfig(): gather engine, full remat) at batch 8. Prints every op
+    the setting names (as a Python
     warning or, from some ops, as a C++ warning on standard error, once per
     process) and fails on one that REMAINING_NONDETERMINISTIC does not
     name. Two controls first show that the probe sees both kinds of call:
@@ -1299,13 +1492,16 @@ def determinism_probe(env, ccfg, batch, out_dir: Path) -> dict:
               "it would be blind")
     configs = {
         "shift, bf16 remat defaults": (train_config("shift", remat=True, remat_bottleneck=False,
-                                                    remat_attn=False), LAUNCHES_PER_STEP),
-        "fused, remat off": (train_config("pallas", remat=False), FUSED_LAUNCHES_PER_STEP),
+                                                    remat_attn=False), batch, LAUNCHES_PER_STEP),
+        "fused, remat off": (train_config("pallas", remat=False), batch, FUSED_LAUNCHES_PER_STEP),
         "fused, remat + remat_attn": (train_config("pallas", remat=True, remat_bottleneck=False,
-                                                   remat_attn=True), FUSED_LAUNCHES_PER_STEP_REMAT),
+                                                   remat_attn=True), batch,
+                                      FUSED_LAUNCHES_PER_STEP_REMAT),
+        f"gather, fp32 batch {FP32_BATCH}, full remat": (fp32_config(), fp32_batch(env),
+                                                         FP32_LAUNCHES_PER_STEP),
     }
-    for label, (tcfg, expected) in configs.items():
-        ops = probed(label, lambda: fresh_step(env, ccfg, batch, tcfg, expected))
+    for label, (tcfg, data, expected) in configs.items():
+        ops = probed(label, lambda: fresh_step(env, ccfg, data, tcfg, expected))
         log(f"  (d) {label}: torch.use_deterministic_algorithms(True, warn_only=True) names "
             f"{len(ops)} op(s){': ' + ', '.join(ops) if ops else ''}")
         stray = [op for op in ops if op not in REMAINING_NONDETERMINISTIC]
@@ -1405,6 +1601,70 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
     log("  (d) determinism probe")
     train["determinism_probe"] = determinism_probe(env, ccfg, batch, out_dir)
     return results, train, profile
+
+
+def fp32_phase(env, ccfg) -> tuple[dict, dict]:
+    """Phase 7 (e): the fp32 training step as the drivers run it
+    (TrainConfig(): f32, gather engine, full remat; batch 8, 256 px, full
+    width): one step from launch counters at 0 with scatter_rows' inputs
+    recorded (the 9 attention layers' corner gradients), scatter_rows held
+    on them and on ragged shapes; then the same first step (fresh weights
+    from seed 0, D's gate on) twice and once with remat off, every G and D
+    gradient and updated weight bit-equal. cuDNN runs with
+    torch.backends.cudnn.deterministic = True in those steps, as in (b) and
+    (c); TF32 is off, as everywhere in this script. Returns (the kernel's
+    results, the phase's numbers with the first step's tensors on the host
+    for phase 10a)."""
+    import dataclasses
+
+    import torch
+
+    from hoig_torch.train.environment import resolve_corner_engine
+
+    tcfg = fp32_config()
+    check(tcfg.corner_engine == resolve_corner_engine("auto", bf16=False) == "gather"
+          and tcfg.compute_dtype == torch.float32
+          and (tcfg.remat, tcfg.remat_bottleneck, tcfg.remat_attn) == (True, True, True),
+          f"TrainConfig() is not the f32 gather step with full remat: {tcfg}")
+    batch = fp32_batch(env)
+    t0 = time.perf_counter()
+    state, step = build_step(env, ccfg, tcfg)
+    rec = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, launches = recorded_step(state, step, batch, FP32_LAUNCHES_PER_STEP, rec)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    del state, step
+    torch.cuda.empty_cache()
+    calls = rec.calls["scatter_rows"]
+    check(len(calls) == FP32_LAUNCHES_PER_STEP["scatter_rows"],
+          f"{len(calls)} scatter_rows calls recorded")
+    result = check_scatter_rows(calls)
+    result["launches"] = launches["scatter_rows"]
+    del rec, calls
+    torch.cuda.empty_cache()
+    check_scatter_ragged()
+
+    log("  (e) the fp32 step's first step twice with full remat and once with remat off: bit "
+        "for bit")
+    first = fresh_step(env, ccfg, batch, tcfg, FP32_LAUNCHES_PER_STEP)
+    n = bit_equal(fresh_step(env, ccfg, batch, tcfg, FP32_LAUNCHES_PER_STEP), first,
+                  "(e) two fp32 steps with full remat")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bit_equal(fresh_step(env, ccfg, batch, dataclasses.replace(tcfg, remat=False),
+                         FP32_LAUNCHES_PER_STEP), first,
+              "(e) the fp32 step with remat off against full remat")
+    peak_off = torch.cuda.max_memory_allocated() / 2**20
+    out = dict(launches=launches, metrics=metrics, bit_equal_tensors=n,
+               recorded_step_peak_mib=peak, remat_off_peak_mib=peak_off,
+               seconds=time.perf_counter() - t0)
+    out["reference"] = {k: v.cpu() for k, v in first.items()}
+    del first
+    torch.cuda.empty_cache()
+    log(f"  (e) fp32 batch {FP32_BATCH}: launches {launches}; peak {peak:.0f} MiB with the "
+        f"9 layers' gradients recorded, {peak_off:.0f} MiB with remat off; "
+        f"{out['seconds']:.1f} s")
+    return result, out
 
 
 def remat_norms(g) -> dict:
@@ -2234,10 +2494,11 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def ddp_phase(env, ccfg) -> dict:
+def ddp_phase(env, ccfg, fp32_ref: dict) -> dict:
     """Phase 10a: the data-parallel step (hoig_torch.parallel.DataParallel)
     in an NCCL process group of world size 1, at full width (see the module
-    docstring). Returns its numbers."""
+    docstring); and the fp32 step's (phase 7e) against fp32_ref, the
+    one-process step's tensors. Returns its numbers."""
     import torch
     import torch.distributed as dist
 
@@ -2251,12 +2512,12 @@ def ddp_phase(env, ccfg) -> dict:
     batch = batch_as_torch(synthetic_batch(BATCH, env["obj_verts"], image_size=IMAGE), "cuda")
     tcfg = train_config("shift", remat=False)
 
-    def one_step(sync: bool):
+    def one_step(sync: bool, tcfg=tcfg, batch=batch, expected=LAUNCHES_PER_STEP):
         """A fresh state (seed 0) and one step with D's gate on, launches from
         counters at 0; its G and D gradients and weights after the step."""
         state = init_state(*build_networks(tcfg, device="cuda", seed=0), tcfg)
         dp = parallel.DataParallel(state) if sync else None
-        step = make_train_step(init_vgg(seed=2, compute_dtype=torch.bfloat16, device="cuda"),
+        step = make_train_step(init_vgg(seed=2, compute_dtype=tcfg.compute_dtype, device="cuda"),
                                env["tables"], env["mano_params"], ccfg, tcfg, sync=dp)
         torch.backends.cudnn.deterministic = True
         try:
@@ -2267,7 +2528,7 @@ def ddp_phase(env, ccfg) -> dict:
         finally:
             torch.backends.cudnn.deterministic = False
         launches = _cuda.launch_counts()
-        check(launches == LAUNCHES_PER_STEP,
+        check(launches == expected,
               f"{'data-parallel' if sync else 'one-process'} step launches {launches}")
         check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"non-finite {metrics}")
         nets = (("g", state.g), ("d", state.d))
@@ -2314,6 +2575,15 @@ def ddp_phase(env, ccfg) -> dict:
             f"{ms_g:.4f} ms (read + write bound {bound_g:.4f}), D {n_d / 1e6:.1f} M {ms_d:.4f} ms "
             f"(bound {bound_d:.4f}); one rank, so NCCL has no peer to reduce with")
         del state, dp, ref, dp_t
+        torch.cuda.empty_cache()
+        # the fp32 step as the drivers run it (phase 7e) through DataParallel
+        state, dp, _, dp_t, _ = one_step(True, fp32_config(), fp32_batch(env),
+                                         FP32_LAUNCHES_PER_STEP)
+        check(dict(dp.collectives) == want, f"fp32 data-parallel collectives {dict(dp.collectives)}")
+        out["fp32_bit_equal_tensors"] = bit_equal(
+            {k: v.cpu() for k, v in dp_t.items()}, fp32_ref,
+            f"the fp32 batch-{FP32_BATCH} data-parallel step against phase 7e's one-process step")
+        del state, dp, dp_t
     finally:
         parallel.shutdown()
         torch.cuda.empty_cache()
@@ -2450,6 +2720,10 @@ def metrics_phase(out_dir: Path) -> dict:
 # B2 and B3 per hard map: one z-buffer call (bin_kernel + raster_kernel) and
 # one finish gather
 RENDER_LAUNCHES = {"rasterizer": 1, "table_gather": 1}
+# scatter_rows launches of one exact-gradient forward + backward: the vertex
+# gradient through vertices_to_faces (the RGB's lighting reads the faces a
+# second time), the depth backward's per-face sums, the texture sampler's
+EXACT_SCATTERS = {"silhouettes": 1, "depth": 2, "rgb": 3}
 # phase 11's sizes besides IMAGE and BATCH: the exact gradients' card-vs-CPU
 # image, the block extractor's layer (hw^2, channels), the UV fit's atlas
 # size, its steps and the steps it is held against the CPU for
@@ -2752,9 +3026,14 @@ def _exact_vjps(env, dev: str, image: int, batch: int, cmp_image: int) -> dict:
         shape = (batch, 3, image, image) if which == "rgb" else (batch, image, image)
         w = torch.randn(shape, generator=gen).to(dev)
         (_, gv, gt), launches = _counted(lambda: run(r, v, tex, which, w), dev,
-                                         RENDER_LAUNCHES, f"exact {which}")
+                                         dict(RENDER_LAUNCHES, scatter_rows=EXACT_SCATTERS[which]),
+                                         f"exact {which}")
         check(bool(torch.isfinite(gv).all()) and float(gv.abs().max()) > 0,
               f"exact {which}: vertex gradient non-finite or zero")
+        # the gradients' sums run in a fixed order: a second run, the same bits
+        _, gv2, gt2 = run(r, v, tex, which, w)
+        check(torch.equal(gv, gv2) and (gt is None or torch.equal(gt, gt2)),
+              f"exact {which}: the vertex or texture gradient changed on a second run")
         ms = _host_ms(lambda: run(r, v, tex, which, w), dev, reps=2)
         mib = _peak_mib(lambda: run(r, v, tex, which, w), dev)
         rc = Renderer(image_size=cmp_image)
@@ -2774,14 +3053,14 @@ def _exact_vjps(env, dev: str, image: int, batch: int, cmp_image: int) -> dict:
         check(ok_v and e_out <= 1e-5, f"exact {which} card vs CPU: output {e_out}, vertex "
               f"gradient {float(err_v.max())} (max {top_v})")
         if which == "rgb":
-            # float atomics on the card add each texel's terms in no fixed order
             top_t = float(gt_c.abs().max())
             e_t = max_err(gt_g.cpu(), gt_c)
             check(e_t <= 1e-5 * top_t, f"exact rgb texture gradient card vs CPU {e_t} (max {top_t})")
             row.update(texture_grad_err=e_t, texture_grad_max=top_t)
         res[which] = row
     log(f"  (c) exact-gradient Renderer, {batch} x {image}^2 (silhouettes and rgb rasterized at "
-        f"{2 * image}^2), forward + backward: " + "; ".join(
+        f"{2 * image}^2), forward + backward (vertex and texture gradients bit-equal on a second "
+        "run): " + "; ".join(
             f"{k} {o['ms']:.1f} ms, peak {o['peak_mib']} MiB, launches {o['launches']}"
             for k, o in res.items()))
     log(f"      card vs CPU at {cmp_image}^2, one sample: " + "; ".join(
@@ -2814,17 +3093,20 @@ def _block_extractor(dev: str, batch: int, hw: int, ch: int) -> dict:
         return out.detach(), s_.grad, f_.grad
 
     ms = _host_ms(lambda: run(dev), dev)
-    got, ref = run(dev), run("cpu")
+    # the CPU run last: there src.to("cpu") is src itself, which then requires grad
+    got, again, ref = run(dev), run(dev), run("cpu")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "block_extractor: the output or a gradient changed on a second run")
     errs = [max_err(a.cpu(), b) for a, b in zip(got, ref)]
     tops = [float(b.abs().max()) for b in ref]
-    # the source gradient is the gathers' scatter-add (float atomics on the card)
     check(errs[0] <= 1e-6 and errs[1] <= 1e-5 * tops[1] and errs[2] <= 1e-5 * tops[2],
           f"block_extractor card vs CPU: out {errs[0]}, d source {errs[1]}, d flow {errs[2]}")
     check(torch.equal(local_attn_reshape(attn.to(dev), k).cpu(), local_attn_reshape(attn, k)),
           "local_attn_reshape differs card vs CPU")
     log(f"  (d) block_extractor ({batch}, {ch}, {hw}, {hw}), kernel 3: forward + backward "
         f"{ms:.2f} ms; card vs CPU out {errs[0]:.3g}, d source {errs[1]:.3g} (max {tops[1]:.3g}), "
-        f"d flow {errs[2]:.3g} (max {tops[2]:.3g}); local_attn_reshape equal")
+        f"d flow {errs[2]:.3g} (max {tops[2]:.3g}); local_attn_reshape equal; output and "
+        "gradients bit-equal on a second run")
     return dict(ms=ms, out_err=errs[0], src_grad_err=errs[1], flow_grad_err=errs[2])
 
 
@@ -2856,19 +3138,23 @@ def _uv_fit(env, dev: str, out_dir: Path, uv_size: int, steps: int, cmp_steps: i
     full = compute_uv_image(uv, tex, uv_size=uv_size, steps=steps, device=dev)
     full_s = time.perf_counter() - t0
     short_g = compute_uv_image(uv, tex, uv_size=uv_size, steps=cmp_steps, device=dev)
+    check(np.array_equal(short_g, compute_uv_image(uv, tex, uv_size=uv_size, steps=cmp_steps,
+                                                   device=dev)),
+          f"compute_uv_image: {cmp_steps} steps gave other bits on a second run")
     t0 = time.perf_counter()
     short_c = compute_uv_image(uv, tex, uv_size=uv_size, steps=cmp_steps, device="cpu")
     cpu_s = time.perf_counter() - t0
     err = float(np.abs(short_g - short_c).max())
     l0, l_short, l_full = loss(np.full_like(full, np.tanh(-1.0))), loss(short_c), loss(full)
-    # Adam on the same gradients up to the card's scatter-add order
+    # Adam on the same gradients up to the f32 rounding of two devices
     check(err <= 1e-4, f"compute_uv_image card vs CPU after {cmp_steps} steps: {err}")
     check(np.isfinite(full).all() and l_full < l_short < l0,
           f"compute_uv_image loss {l0} -> {l_short} ({cmp_steps}) -> {l_full} ({steps})")
     log(f"  (e) compute_uv_image, hand atlas ({uv.shape[0]} faces), uv_size {uv_size}: {steps} "
         f"steps {full_s:.2f} s ({full_s / steps * 1e3:.3f} ms per step), loss {l0:.4g} -> "
         f"{l_short:.4g} ({cmp_steps}) -> {l_full:.4g} ({steps}); card vs CPU after {cmp_steps} "
-        f"steps {err:.3g} (bound 1e-4; CPU {cpu_s:.2f} s)")
+        f"steps {err:.3g} (bound 1e-4; CPU {cpu_s:.2f} s); the card's {cmp_steps} steps "
+        "bit-equal on a second run")
     return dict(steps=steps, s=full_s, ms_per_step=full_s / steps * 1e3, loss0=l0,
                 loss_short=l_short, loss=l_full, cmp_err=err, cmp_steps=cmp_steps)
 
@@ -3071,7 +3357,7 @@ def tools_phase(env, out_dir: Path, serve: dict, train: dict) -> dict:
         "fp32_b8_gather_train": _profile_leg(
             "fp32_b8_gather_train", ["--dtype", "fp32", "--engine", "gather", "--batch", "8",
                                      "--steps", "2", "--warmup", "1"], out_dir,
-            dict(cond, edge_pad_fold=9), dict(b2b3, fold_kernel=9)),
+            FP32_LAUNCHES_PER_STEP, dict(b2b3, fold_kernel=9, scatter_rows_kernel=9)),
         "bf16_b4_fused_serve": _profile_leg(
             "bf16_b4_fused_serve", ["--dtype", "bf16", "--engine", "pallas", "--leg", "fwd",
                                     "--batch", str(BATCH), "--steps", "2", "--warmup", "2"],
@@ -3510,10 +3796,10 @@ def real_data_phase(out_dir: Path, drivers: dict, dev: str = "cuda") -> dict:
 # phase's is chip_smoke's
 BENCH_TIMEOUT_S = 600
 # launches per step or call of each leg at the main path's counts (phases 5,
-# 6e and 7); the fp32 leg's gather engine launches no attention kernel
+# 6e, 7 and 7e); the fp32 leg's gather engine launches no attention kernel
 BENCH_LAUNCHES = {"train_bf16": LAUNCHES_PER_STEP, "gen_fwd": LAUNCHES_PER_CALL,
                   "train_bf16_b8": LAUNCHES_PER_STEP, "train_bf16_dexycb": LAUNCHES_PER_STEP,
-                  "train_fp32": {"rasterizer": 1, "table_gather": 2, "edge_pad_fold": 9}}
+                  "train_fp32": FP32_LAUNCHES_PER_STEP}
 
 
 def _bench_run(label: str, out_dir: Path, env_extra: dict) -> dict:
@@ -3789,8 +4075,15 @@ def main() -> int:
         log(f"  profiler {region}: launches per {'call' if region == 'hoig_serve' else 'step'} {got}")
         check(got == want, f"{region} launches by kernel {got} != {want}")
 
+    # 7 (e). the fp32 step as the drivers run it, and scatter_rows
+    del gen, regions, outs
+    torch.cuda.empty_cache()
+    log(f"[7e] the fp32 training step as the drivers run it (TrainConfig(): f32, gather engine, "
+        f"full remat), {IMAGE} px, batch {FP32_BATCH}, conv_dim 64, repeat 6; card {card}")
+    results["scatter_rows"], fp32 = fp32_phase(env, ccfg)
+
     # 9. the drivers: train_torch.Train, then eval_torch.main from its checkpoint
-    del gen, regions, outs, batch
+    del batch
     torch.cuda.empty_cache()
     log(f"[9] drivers: train_torch.Train (3 steps) and eval_torch.main (shift, 2 batches; fused, "
         f"1 batch) on the synthetic dataset, {IMAGE} px, batch {BATCH}, bf16, conv_dim 64, "
@@ -3800,7 +4093,7 @@ def main() -> int:
     # 10. data parallelism (hoig_torch.parallel) and the metric battery
     log(f"[10] data-parallel training (NCCL, one rank) and the metrics, {IMAGE} px, batch "
         f"{BATCH}, bf16, conv_dim 64, repeat 6")
-    ddp = ddp_phase(env, ccfg)
+    ddp = ddp_phase(env, ccfg, fp32.pop("reference"))
     ddp["torchrun"] = torchrun_phase(out_dir, drivers)
     metrics = metrics_phase(out_dir)
 
@@ -3832,7 +4125,8 @@ def main() -> int:
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
         on_fused = name in FUSED_BF16.values()
-        step_launches = fused["training"]["launches"] if on_fused else train["launches"]
+        step_launches = (fused["training"]["launches"] if on_fused else
+                         fp32["launches"] if name == "scatter_rows" else train["launches"])
         call_launches = fused["serving_launches"] if on_fused else launches
         row = dict(name=name, route="cuda", source=src, replaces=replaces,
                    launches=step_launches[name], launches_serving=call_launches.get(name, 0),
@@ -3840,7 +4134,7 @@ def main() -> int:
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                    library_ms=r["library_ms"])
         row.update({k: r[k] for k in ("library", "yardstick_ms", "yardstick", "f32_ms",
-                                      "f32_bound_ms") if k in r})
+                                      "f32_bound_ms", "replaced_ms", "replaced") if k in r})
         if name in RENDER_LAUNCHES:
             # launches of one renderer.render_rgb call (2x anti-aliasing) in phase 11
             row["launches_renderer"] = offpath["renderer"]["calls"]["render_rgb"]["launches"].get(
@@ -3848,7 +4142,7 @@ def main() -> int:
         kernels.append(row)
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                   kernels=results, cpu_compare=cpu_cmp, serving=serve, training=train,
-                  fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics,
+                  fp32=fp32, fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics,
                   offpath=offpath, tools=tools, real_data=real_data, bench=bench)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
     log(json.dumps({"drivers": drivers}, default=str))

@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hoig_torch.ops.table_gather import gather_rows_nhwc
+
 # HOGAN views the NDC plane from eye = (0, 0, -(1/tan(30 deg) + 1)) at the
 # origin, +y up: the look_at rotation is the identity, so the view transform
 # is a pure z shift.
@@ -76,13 +78,13 @@ def to_view_space(proj_verts: torch.Tensor) -> torch.Tensor:
 
 def vertices_to_faces(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     """(B, V, 3) vertices, (F, 3) or (B, F, 3) face ids -> (B, F, 3, 3).
-    Negative (padding) ids read vertex 0; callers mask them by face validity."""
+    Negative (padding) ids read vertex 0; callers mask them by face validity.
+    The vertex gradient adds in a fixed order (`gather_rows_nhwc`)."""
     if faces.dim() == 2:
         faces = faces[None].expand(vertices.shape[0], -1, -1)
     b, f, _ = faces.shape
-    safe = faces.long().clamp(0, vertices.shape[1] - 1).reshape(b, f * 3, 1)
-    gathered = torch.gather(vertices, 1, safe.expand(-1, -1, vertices.shape[2]))
-    return gathered.reshape(b, f, 3, 3)
+    safe = faces.long().clamp(0, vertices.shape[1] - 1).reshape(b, f * 3)
+    return gather_rows_nhwc(vertices, safe).reshape(b, f, 3, 3)
 
 
 def proj_func(points: torch.Tensor, transl: torch.Tensor, rot: torch.Tensor,

@@ -47,6 +47,7 @@ from hoig_torch.models.layers import (
 from hoig_torch.ops.attn_fused import edge_pad, flow_attention_fused, flow_fields
 from hoig_torch.ops.grid_sample import _resize_axis_linear_ac, grid_sample_nhwc
 from hoig_torch.ops.local_combine import local_combine
+from hoig_torch.ops.table_gather import gather_rows_nhwc
 
 
 def _run(module: nn.Module, remat: bool, *args):
@@ -89,7 +90,8 @@ class ExtractorAttn(nn.Module):
     Three engines with identical parameters: "shift" (bf16 pick) writes every
     bilinear corner as a bounded integer shift and evaluates both
     weighted-shift sums with the `local_combine` kernel; "gather" (f32 pick)
-    fetches the (k+1)^2 shared corners with row gathers; "pallas" (the JAX
+    fetches the (k+1)^2 shared corners with one row gather, whose backward
+    is the fixed-order `scatter_rows` kernel; "pallas" (the JAX
     package's name for it, opt-in) runs the whole source half, softmax and
     weighted mean in the fused kernels of `ops/attn_fused.py` (k = 5 only).
     The flow is the reference's normalized delta read in pixels, bounded so
@@ -217,12 +219,19 @@ class ExtractorAttn(nn.Module):
         r = k // 2
         b, h, w, c = source.shape
         cd = self.compute_dtype
-        src_flat = source.to(cd).reshape(b, h * w, c)
-
-        def corner(ry: int, rx: int) -> torch.Tensor:
-            """Border-clamped fetch of the source at floor(flow) + (rx, ry)."""
-            idx = (y0 + ry).clamp(0, h - 1) * w + (x0 + rx).clamp(0, w - 1)
-            return torch.gather(src_flat, 1, idx.reshape(b, h * w, 1).expand(-1, -1, c))
+        corners = [(ry, rx) for ry in range(-r, r + 2) for rx in range(-r, r + 2)]
+        # all (k+1)^2 border-clamped corners floor(flow) + (rx, ry) in one
+        # row gather of the batch-flattened source, corner-major, so that each
+        # corner is a contiguous (B, hw, C) block and the backward is one
+        # fixed-order scatter_rows
+        dev = source.device
+        off = torch.arange(-r, r + 2, device=dev)
+        off_y = off[:, None].expand(k + 1, k + 1).reshape(-1, 1, 1, 1)
+        off_x = off[None, :].expand(k + 1, k + 1).reshape(-1, 1, 1, 1)
+        base = (torch.arange(b, device=dev) * (h * w)).view(1, b, 1, 1)
+        idx = base + (y0 + off_y).clamp(0, h - 1) * w + (x0 + off_x).clamp(0, w - 1)
+        rows = gather_rows_nhwc(source.to(cd).reshape(1, b * h * w, c), idx.reshape(1, -1))
+        fetched = dict(zip(corners, rows.reshape(len(corners), b, h * w, c).unbind(0)))
 
         def offsets_touching(ry: int, rx: int):
             """The <= 4 (corner weight, offset) pairs that read corner (ry, rx)."""
@@ -237,12 +246,11 @@ class ExtractorAttn(nn.Module):
                         out.append((cy, cx, dy + r, dx + r))
             return out
 
-        corners = [(ry, rx) for ry in range(-r, r + 2) for rx in range(-r, r + 2)]
         w_src = w0c[:, c:]  # (128, C, k, k)
         for ry, rx in corners:
             ts = offsets_touching(ry, rx)
             wstk = torch.cat([w_src[:, :, oy, ox].t() for _, _, oy, ox in ts], dim=-1)
-            mm = (corner(ry, rx) @ wstk).reshape(b, h, w, len(ts) * 128)
+            mm = (fetched[ry, rx] @ wstk).reshape(b, h, w, len(ts) * 128)
             for j, (cy, cx, _, _) in enumerate(ts):
                 acc = acc + (wy[cy] * wx[cx]) * mm[..., j * 128:(j + 1) * 128]
         attn = self._attention(acc, w1, b1)
@@ -254,7 +262,7 @@ class ExtractorAttn(nn.Module):
                 t_idx = oy * k + ox
                 term = (wy[cy] * wx[cx]) * attn[..., t_idx:t_idx + 1]
                 cw = term if cw is None else cw + term
-            out = out + cw * corner(ry, rx).reshape(b, h, w, c)
+            out = out + cw * fetched[ry, rx].reshape(b, h, w, c)
         return (out / (k * k)).to(source.dtype)
 
 

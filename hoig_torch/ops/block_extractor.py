@@ -14,13 +14,18 @@ The reference's two CUDA extensions behind its `ExtractorAttn`:
 
 Both are dense gathers and views, so autograd gives the reference's
 backward: `floor` has a zero gradient, so d(bilinear)/d(flow) is the
-kernel's (:163-168), and the source gradient is the gathers' scatter-add
-(float atomics on CUDA, as the reference's atomicAdd).
+kernel's (:163-168), and the source gradient is the gathers' scatter-add.
+The reference adds it with atomicAdd, in no fixed order; here the four
+corners are one row gather whose backward (`scatter_rows`) adds in a fixed
+order, as the JAX package's does on the TPU, and the flow is repeated over
+each block by a broadcast, whose backward is a plain sum.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hoig_torch.ops.table_gather import gather_rows_nhwc
 
 
 def _offsets(h: int, w: int, k: int, device):
@@ -39,22 +44,23 @@ def _sample(src_flat: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor, h: int, 
     b = dx.shape[0]
     x0, y0 = dx.floor(), dy.floor()
     tx, ty = dx - x0, dy - y0
-    out = None
+    idxs, wgts = [], []
     for dyi, wy in ((0, 1.0 - ty), (1, ty)):
         ycl = (y0 + dyi).clamp(0, h - 1).long()
         for dxi, wx in ((0, 1.0 - tx), (1, tx)):
             xcl = (x0 + dxi).clamp(0, w - 1).long()
-            idx = (ycl * w + xcl).reshape(b, -1)
-            wgt = (wy * wx).reshape(b, -1).to(src_flat.dtype)
-            if channel_last:
-                c = src_flat.shape[2]
-                vals = torch.gather(src_flat, 1, idx[..., None].expand(-1, -1, c))
-                contrib = vals * wgt[..., None]
-            else:
-                c = src_flat.shape[1]
-                vals = torch.gather(src_flat, 2, idx[:, None].expand(-1, c, -1))
-                contrib = vals * wgt[:, None]
-            out = contrib if out is None else out + contrib
+            idxs.append((ycl * w + xcl).reshape(b, -1))
+            wgts.append((wy * wx).reshape(b, -1).to(src_flat.dtype))
+    # the four corners in one row gather of the (B, HW, C) rows
+    rows = src_flat if channel_last else src_flat.transpose(1, 2)
+    vals = gather_rows_nhwc(rows, torch.cat(idxs, 1)).chunk(4, dim=1)
+    out = None
+    for val, wgt in zip(vals, wgts):
+        if channel_last:
+            contrib = val * wgt[..., None]
+        else:
+            contrib = val.transpose(1, 2) * wgt[:, None]
+        out = contrib if out is None else out + contrib
     return out
 
 
@@ -64,7 +70,7 @@ def block_extractor(source: torch.Tensor, flow: torch.Tensor, kernel_size: int) 
     b, c, h, w = source.shape
     k = kernel_size
     ox, oy = _offsets(h, w, k, source.device)
-    flow_up = flow.repeat_interleave(k, dim=2).repeat_interleave(k, dim=3)
+    flow_up = flow[:, :, :, None, :, None].expand(b, 2, h, k, w, k).reshape(b, 2, h * k, w * k)
     dx = flow_up[:, 0] + ox.to(flow.dtype)
     dy = flow_up[:, 1] + oy.to(flow.dtype)
     out = _sample(source.reshape(b, c, h * w), dx, dy, h, w, channel_last=False)
@@ -87,7 +93,7 @@ def block_extractor_nhwc(source: torch.Tensor, flow: torch.Tensor,
     b, h, w, c = source.shape
     k = kernel_size
     ox, oy = _offsets(h, w, k, source.device)
-    flow_up = flow.repeat_interleave(k, dim=1).repeat_interleave(k, dim=2)
+    flow_up = flow[:, :, None, :, None].expand(b, h, k, w, k, 2).reshape(b, h * k, w * k, 2)
     dx = flow_up[..., 0] + ox.to(flow.dtype)
     dy = flow_up[..., 1] + oy.to(flow.dtype)
     out = _sample(source.reshape(b, h * w, c), dx, dy, h, w, channel_last=True)

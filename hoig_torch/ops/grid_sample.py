@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from hoig_torch.ops.table_gather import gather_rows_nhwc
+
 
 def _unnormalize(coord: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
     if align_corners:
@@ -26,8 +28,7 @@ def grid_sample_nhwc(image: torch.Tensor, grid: torch.Tensor, align_corners: boo
     gy = _unnormalize(grid[..., 1].float(), h, align_corners)
     x0, y0 = gx.floor(), gy.floor()
     tx, ty = gx - x0, gy - y0
-    flat = image.reshape(n, h * w, c)
-    out = None
+    weights, idxs = [], []
     for dy, wy in ((0, 1.0 - ty), (1, ty)):
         yi = y0 + dy
         y_ok = (yi >= 0) & (yi <= h - 1)
@@ -36,10 +37,14 @@ def grid_sample_nhwc(image: torch.Tensor, grid: torch.Tensor, align_corners: boo
             xi = x0 + dx
             x_ok = (xi >= 0) & (xi <= w - 1)
             xc = xi.clamp(0, w - 1).long()
-            weight = torch.where(y_ok & x_ok, wy * wx, 0.0).reshape(n, -1, 1)
-            idx = (yc * w + xc).reshape(n, -1, 1).expand(-1, -1, c)
-            contrib = torch.gather(flat, 1, idx) * weight.to(image.dtype)
-            out = contrib if out is None else out + contrib
+            weights.append(torch.where(y_ok & x_ok, wy * wx, 0.0).reshape(n, -1, 1))
+            idxs.append((yc * w + xc).reshape(n, -1))
+    # the four corners in one row gather (fixed-order backward: scatter_rows)
+    vals = gather_rows_nhwc(image.reshape(n, h * w, c), torch.cat(idxs, 1))
+    out = None
+    for val, weight in zip(vals.chunk(4, dim=1), weights):
+        contrib = val * weight.to(image.dtype)
+        out = contrib if out is None else out + contrib
     return out.reshape(n, grid.shape[1], grid.shape[2], c)
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from hoig_torch.ops.table_gather import gather_rows_reference
+from hoig_torch.ops.table_gather import gather_rows_nhwc, gather_rows_reference
 
 _BIG = 1e10
 
@@ -259,8 +259,8 @@ def soft_silhouette(face_verts: torch.Tensor, face_valid: torch.Tensor | None = 
             best = torch.where(better, cmax, best)
             arg = torch.where(better, (base + cface) * 3 + cedge, arg)
     face = arg // 3
-    rows = torch.gather(torch.cat([e, norm[..., None]], dim=-1).reshape(b, f * 3, 4), 1,
-                        arg[..., None].expand(-1, -1, 4))  # (B, P, 4) with gradient
+    # (B, P, 4) with gradient, which adds in a fixed order
+    rows = gather_rows_nhwc(torch.cat([e, norm[..., None]], dim=-1).reshape(b, f * 3, 4), arg)
     m = (xp * rows[..., 0] + yp * rows[..., 1] + rows[..., 2]) / rows[..., 3]
     m = torch.where(torch.gather(keep, 1, face), m, -1e6)
     return torch.sigmoid(scale * m).reshape(b, s, s).flip(1)

@@ -33,6 +33,7 @@ import torch
 
 from hoig_torch.ops.rasterizer import _face_setup
 from hoig_torch.ops.rasterizer_cuda import rasterize_fim_wim_auto
+from hoig_torch.ops.table_gather import scatter_rows
 from hoig_torch.ops.texture import sample_textures_trilinear
 
 DEFAULT_EPS = 1e-4  # reference rasterize.py:12
@@ -184,8 +185,8 @@ def backward_depth_map(face_verts: torch.Tensor, face_valid: torch.Tensor | None
                        image_size: int) -> torch.Tensor:
     """Analytic depth-map vertex gradients (kernel :561-611), batched. All
     maps UNflipped; the barycentric weights are recomputed as the forward
-    computes them. Returns grad_faces (B, F, 3, 3). The per-face sums are an
-    index_add_ (float atomics on CUDA: their order is not fixed there)."""
+    computes them. Returns grad_faces (B, F, 3, 3). The per-face sums are
+    `scatter_rows` (ascending pixel order, in f32, on both devices)."""
     s = image_size
     b, f = face_verts.shape[:2]
     setup = _face_setup(face_verts, face_valid, s)
@@ -212,10 +213,9 @@ def backward_depth_map(face_verts: torch.Tensor, face_valid: torch.Tensor | None
     gxyk = (-g[..., None, None] * tmp[:, :, None, :2] * w[..., None] * d2[..., None, None]
             * (s / 2.0))  # (B, P, 3 vertices, 2)
     contrib = torch.cat([gxyk, gz[..., None]], -1)  # (B, P, 3, 3)
-    seg = torch.where(hit, idx, f) + torch.arange(b, device=fim.device)[:, None] * (f + 1)
-    out = torch.zeros((b * (f + 1), 3, 3), dtype=torch.float32, device=fim.device)
-    out.index_add_(0, seg.reshape(-1), contrib.reshape(-1, 3, 3))
-    return out.reshape(b, f + 1, 3, 3)[:, :f]
+    # background pixels (index -1) add to no face
+    out = scatter_rows(contrib.reshape(b, -1, 9), torch.where(hit, idx, -1), f)
+    return out.reshape(b, f, 3, 3)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,24 @@
-"""Exact row gather from small per-sample tables, channel-first.
+"""Exact row gathers, and the fixed-order transpose of a row gather.
 
-    out[b, :, p] = table[b, idx[b, p], :]
+    gather_rows       out[b, :, p] = table[b, idx[b, p], :]
+    gather_rows_nhwc  out[b, p, :] = src[b, idx[b, p], :]
+    scatter_rows      out[b, n, :] = sum of val[b, e, :] over e ascending with idx[b, e] == n
 
 Every fim-indexed lookup of the conditioning stage reads rows of a table with
 at most a few thousand rows: the rasterizer finish's [finv | attrs] rows and
 the texture warp's face-corner rows. On CUDA tensors `gather_rows` launches
 the hand-written kernel (csrc/table_gather.cu); on CPU tensors it runs the
 plain `torch.take_along_dim`.
+
+Every row gather of the port that carries a gradient goes through
+`gather_rows_nhwc` (the `GatherRows` Function): the gather engine's
+bilinear corners, `grid_sample`, the texture sampler, the block extractor,
+the soft rasterizer's winning edges and the faces' vertices. Its forward
+is the exact library gather; its backward is `scatter_rows`, whose sums
+run in a fixed order (torch.gather's own backward adds with float atomics
+on CUDA, in an order that changes from run to run). On CUDA tensors
+`scatter_rows` launches scatter_rows_kernel (counter `scatter_rows`); on
+CPU tensors it runs `scatter_rows_reference`, which adds in the same order.
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ from hoig_torch.ops import _cuda
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _P]
+_SCATTER_ARGS = [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P]
 
 
 def gather_rows_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -48,3 +61,86 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _cuda.check("table_gather", err)
     _cuda.count_launch("table_gather")
     return out
+
+
+def scatter_order(idx: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The summation order of scatter_rows: (perm, starts), int64.
+
+    The entries (b, e) of idx (B, E), flattened to b * E + e, are sorted
+    stably by destination row b * n + idx[b, e], so each row's entries stand
+    in ascending e; row r's run is perm[starts[r]:starts[r + 1]]. An entry
+    whose index lies outside [0, n) sorts past the last row and adds to none.
+    Index arithmetic only: a sort and a search, no sum of values."""
+    b, e = idx.shape
+    dev = idx.device
+    i = idx.long()
+    rows = torch.arange(b, device=dev)[:, None] * n + i
+    keys = torch.where((i >= 0) & (i < n), rows, b * n).reshape(-1)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    starts = torch.searchsorted(sorted_keys, torch.arange(b * n + 1, device=dev))
+    return perm, starts
+
+
+def scatter_rows_reference(val: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """scatter_rows, plain: the same order, then a masked loop over segment
+    positions, left to right, in f32 from 0 (float64 stays float64),
+    rounded once to val's dtype, so that the kernel gives the same bits."""
+    b, e, c = val.shape
+    perm, starts = scatter_order(idx, n)
+    acc_dtype = torch.promote_types(val.dtype, torch.float32)
+    flat = val.reshape(b * e, c).to(acc_dtype)
+    first, length = starts[:-1], starts[1:] - starts[:-1]
+    acc = torch.zeros((b * n, c), dtype=acc_dtype, device=val.device)
+    for k in range(int(length.max()) if length.numel() else 0):
+        rows = torch.nonzero(length > k).squeeze(1)
+        acc[rows] = acc[rows] + flat[perm[first[rows] + k]]
+    return acc.to(val.dtype).reshape(b, n, c)
+
+
+def scatter_rows(val: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, E, C) f32 or bf16 entries, (B, E) integer rows -> (B, n, C) in
+    val's dtype: out[b, r] = the sum of val[b, e] over the e (ascending)
+    with idx[b, e] == r, taken in f32 and rounded once; a row with no entry
+    is 0, an entry outside [0, n) adds to no row. The transpose of a row
+    gather, in an order that does not change from run to run."""
+    if val.dim() != 3 or idx.shape != val.shape[:2]:
+        raise ValueError(f"idx {tuple(idx.shape)} does not fit val {tuple(val.shape)}")
+    if val.device.type == "cpu":
+        return scatter_rows_reference(val, idx, n)
+    _cuda.require_cuda(val, idx)
+    if val.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"scatter_rows takes f32 or bf16 values, got {val.dtype}")
+    b, e, c = val.shape
+    out = torch.empty((b, n, c), dtype=val.dtype, device=val.device)
+    if out.numel() == 0:
+        return out
+    val = val.contiguous()
+    perm, starts = scatter_order(idx, n)
+    fn = _cuda.kernel("table_gather", "hoig_scatter_rows", _SCATTER_ARGS)
+    err = fn(val.data_ptr(), perm.data_ptr(), starts.data_ptr(), out.data_ptr(), b * n, c,
+             int(val.dtype == torch.bfloat16), _cuda.stream_ptr())
+    _cuda.check("table_gather", err, "scatter_rows")
+    _cuda.count_launch("scatter_rows")
+    return out
+
+
+class GatherRows(torch.autograd.Function):
+    """The exact row gather with a fixed-order backward (scatter_rows); the
+    indices get no gradient."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = src.shape[1]
+        return torch.gather(src, 1, idx[..., None].expand(-1, -1, src.shape[2]))
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return scatter_rows(g, idx, ctx.rows), None
+
+
+def gather_rows_nhwc(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src (B, N, C), idx (B, P) int64 in [0, N) -> (B, P, C): src[b, idx[b, p]],
+    bit-identical to torch.gather; its gradient is scatter_rows."""
+    return GatherRows.apply(src, idx)

@@ -3,15 +3,17 @@
 Port of hoig_tpu/ops/texture.py (the neural renderer's texture model):
 per-face (T, T, T, 3) texture cubes sampled trilinearly at the barycentric
 weights of each pixel's face, and ambient + directional lighting from face
-normals. The eight corner reads are exact gathers from the flattened cubes,
-added in the JAX package's order; their gradient with respect to the
-textures is the gather's scatter-add (float atomics on CUDA, so the order of
-its sums is not fixed there).
+normals. The eight corner reads are one exact row gather from the
+flattened cubes, added in the JAX package's order; their gradient with
+respect to the textures is `scatter_rows`, whose sums run in a fixed order
+on both devices.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hoig_torch.ops.table_gather import gather_rows_nhwc
 
 
 def lighting(face_verts: torch.Tensor, textures: torch.Tensor, intensity_ambient: float = 0.5,
@@ -52,17 +54,17 @@ def sample_textures_trilinear(textures: torch.Tensor, fim: torch.Tensor, wim: to
     frac = pos - lo.to(pos.dtype)
     base = face * (t * t * t)
 
-    def corner(ix, iy, iz, w):
-        idx = base + ((ix * t + iy) * t + iz).reshape(b, -1)
-        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, 3))
-        return vals * w.reshape(b, -1, 1)
-
     fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
-    color = None
+    idxs, weights = [], []
     for ix, wx in ((lo[..., 0], 1 - fx), (hi[..., 0], fx)):
         for iy, wy in ((lo[..., 1], 1 - fy), (hi[..., 1], fy)):
             for iz, wz in ((lo[..., 2], 1 - fz), (hi[..., 2], fz)):
-                c = corner(ix, iy, iz, wx * wy * wz)
-                color = c if color is None else color + c
+                idxs.append(base + ((ix * t + iy) * t + iz).reshape(b, -1))
+                weights.append(wx * wy * wz)
+    vals = gather_rows_nhwc(flat, torch.cat(idxs, 1))
+    color = None
+    for val, w in zip(vals.chunk(8, dim=1), weights):
+        c = val * w.reshape(b, -1, 1)
+        color = c if color is None else color + c
     bg = torch.tensor(background_color, dtype=textures.dtype, device=textures.device)
     return torch.where(hit, color, bg).reshape(b, s1, s2, 3)

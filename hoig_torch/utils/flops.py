@@ -346,6 +346,15 @@ def edge_pad_folds(cfg, leg: str) -> int:
     return per_layer * len(attn_layers(cfg.image_size, cfg.conv_dim, cfg.repeat_num))
 
 
+def scatter_rows_launches(cfg, leg: str) -> int:
+    """Launches of scatter_rows (a data-movement kernel, outside the FLOP
+    walk) in one serving call (none: no backward) or training step: the
+    gather engine's one corner gather per attention layer transposes once."""
+    if leg != "train" or cfg.corner_engine != "gather":
+        return 0
+    return len(attn_layers(cfg.image_size, cfg.conv_dim, cfg.repeat_num))
+
+
 def leg_flops(cfg, b: int, leg: str) -> dict:
     """FLOPs of one serving call ("serve") or training step ("train") at
     batch b: {"aten": {subnet: {model, executed}}, "kernels": {counter:

@@ -159,7 +159,7 @@ KERNEL_CLASSES = (
                               "gather_kernel", "conv5_kernel", "conv5_tc_kernel",
                               "fwd_pixel_kernel", "bwd_c_kernel", "bwd_c_gattn_kernel",
                               "fold_kernel", "dg_kernel", "dw_kernel", "dw_tc_kernel",
-                              "slice_sum_kernel")),
+                              "slice_sum_kernel", "scatter_rows_kernel")),
     ("collectives (NCCL)", ("nccl",)),
     # cuBLAS's kernels are xmma and cutlass kernels too: a convolution's name
     # says fprop, dgrad or wgrad, implicit_gemm, cudnn or conv
@@ -176,8 +176,18 @@ KERNEL_CLASSES = (
 )
 
 
+# a hand-written kernel's function name as a whole word of the profiler's
+# kernel name: dw_kernel is not dw_tc_kernel, gather_kernel not aten's
+# vectorized_gather_kernel
+_HAND_WRITTEN = {key: re.compile(rf"(?<![A-Za-z_]){key}(?![a-z_])")
+                 for key in KERNEL_CLASSES[0][1]}
+
+
 def kernel_class(name: str) -> str:
-    return next((label for label, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+    if any(pat.search(name) for pat in _HAND_WRITTEN.values()):
+        return KERNEL_CLASSES[0][0]
+    return next((label for label, keys in KERNEL_CLASSES[1:] if any(k in name for k in keys)),
+                "other")
 
 
 def hand_written(by_name: dict, n: int) -> dict:
@@ -186,8 +196,7 @@ def hand_written(by_name: dict, n: int) -> dict:
     that dw_kernel does not count dw_tc_kernel's launches). by_name: {kernel
     name: [device us, launches]} over n calls or steps."""
     out = {}
-    for key in KERNEL_CLASSES[0][1]:
-        pat = re.compile(rf"(?<![A-Za-z_]){key}(?![a-z_])")
+    for key, pat in _HAND_WRITTEN.items():
         hits = [v for k, v in by_name.items() if pat.search(k)]
         if hits:
             out[key] = dict(ms=sum(v[0] for v in hits) / n / 1e3, count=sum(v[1] for v in hits) // n)

@@ -102,6 +102,8 @@ def check_leg(tcfg, batch_size: int, device, env=None) -> dict:
             expect.update(rasterizer=1, table_gather=2)
             if flops.edge_pad_folds(tcfg, leg):
                 expect["edge_pad_fold"] = flops.edge_pad_folds(tcfg, leg)
+            if flops.scatter_rows_launches(tcfg, leg):
+                expect["scatter_rows"] = flops.scatter_rows_launches(tcfg, leg)
             if launches != expect:
                 raise RuntimeError(f"{leg}: launches {launches}, the walk's {expect}")
             row["launches"] = launches

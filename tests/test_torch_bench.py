@@ -322,7 +322,7 @@ def test_leg_specs_are_bench_py_legs():
     assert bench_torch.expected_launches(specs["gen_fwd"]) == dict(
         local_combine_tc=18, rasterizer=1, table_gather=2)
     assert bench_torch.expected_launches(specs["train_fp32"]) == dict(
-        rasterizer=1, table_gather=2, edge_pad_fold=9)
+        rasterizer=1, table_gather=2, edge_pad_fold=9, scatter_rows=9)
     fused = bench_torch.expected_launches(bench_torch.leg_spec("train_bf16", "pallas"))
     assert fused == dict(attn_fused_fwd_tc=9, attn_fused_bwd_c=9, attn_fused_bwd_a_gsrc_tc=9,
                          attn_fused_bwd_a_dw_tc=9, rasterizer=1, table_gather=2, edge_pad_fold=9)

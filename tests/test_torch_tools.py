@@ -266,6 +266,16 @@ def test_kernel_classes_and_hand_written_whole_words():
                   "dw_kernel": dict(ms=0.006, count=1), "dw_tc_kernel": dict(ms=0.004, count=1)}
 
 
+def test_aten_gather_is_not_hand_written():
+    """aten's gather kernel holds a hand-written kernel's name inside a
+    longer word: it is a gather, not gather_kernel (B3) or scatter_rows."""
+    name = "void at::native::vectorized_gather_kernel<16, long>(char*, char*, long*)"
+    assert profiling.kernel_class(name) == "gathers, scatters, index ops"
+    assert profiling.kernel_class("void (anonymous namespace)::scatter_rows_kernel<float, 4>("
+                                  "float const*)") == "hand-written kernels"
+    assert profiling.hand_written({name: [5.0, 1]}, 1) == {}
+
+
 def test_idle_gaps_and_region_summary():
     gaps = profiling.idle_gaps(EVENTS, 0, 200, top=3)
     assert [(g["start"], g["ms"]) for g in gaps] == [(90, 0.06), (176, 0.024), (0, 0.02)]
