@@ -78,10 +78,11 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      kernels (dsrc bit-equal); then timed beside their plain versions and
      the FP32 kernels; the edge-pad fold (edge_pad_fold: the backward of the
      attention's replicate pads, one fold_kernel launch per padded tensor)
-     on the step's 18 recorded gradients and on ragged frames at pads 2 and
-     5, f32 and bf16, bit-equal to its plain version (the f32 fold rounded
-     once) and to itself, timed beside it and aten's
-     replication_pad2d_backward; warm and timed steps with the per-step
+     on the step's 18 recorded gradients and on ragged frames and the main
+     path's frames with C not a multiple of 8, at pads 2 and 5, f32 and
+     bf16, aligned and one element off 16 bytes, bit-equal to its plain
+     version (the f32 fold rounded once) and to itself, timed beside it and
+     aten's replication_pad2d_backward; warm and timed steps with the per-step
      launch counts (18 / 18 / 9 / 1 / 2 / 18 edge-pad folds) asserted,
      finite metrics, every weight moved, D bit-equal across a gated step;
      the same again with the bf16 remat defaults (bottleneck and attention
@@ -97,12 +98,15 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      (1 / 2 / 9 / 9 launches of B2 / B3 / the edge-pad fold / scatter_rows,
      the gather engine's one corner gather per layer transposed in a fixed
      order) with the 9 layers' corner gradients recorded; scatter_rows held
-     on them bit-equal to its plain version and to itself, timed beside it,
-     one index_add_ and the 72 torch.gather backward passes a layer that it
-     replaced (that backward also run twice on the same inputs, the
-     elements that differ counted); then on ragged shapes (C from 1 to 512, indices outside the
-     rows, one row, no entry, an unaligned base, f32 and bf16) and through
-     GatherRows; then the same first step twice and once with remat off,
+     on them bit-equal to its plain version and to itself, timed whole and
+     as its two stages apart (the order built on the card; the sum in it)
+     beside it, one index_add_ and the 72 torch.gather backward passes a
+     layer that it replaced (that backward also run twice on the same
+     inputs, the elements that differ counted); then on ragged shapes (C
+     from 1 to 512, indices outside the rows, one row, no entry, 100,000
+     entries on one row, a clamped gather layer, an unaligned base, f32
+     and bf16) and through GatherRows; then the same first step twice and
+     once with remat off,
      every G and D gradient and updated weight bit-equal (cuDNN
      deterministic, TF32 off);
   8. one profiler window over two serving calls and one training step with
@@ -202,7 +206,7 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      step 9 of the edge-pad fold and of scatter_rows, and 9 of B4-fwd for
      the fused call) and, from its profile, bin_kernel and raster_kernel
      once and gather_kernel twice (the step also fold_kernel and
-     scatter_rows_kernel 9 times; the fused call also
+     scatter_rows' six kernels, SCATTER_FUNCTIONS, 9 times; the fused call also
      conv5_tc_kernel and fwd_pixel_kernel 9 times and slice_sum_kernel once
      per layer whose product splits), no other hand-written kernel;
      scripts/attn_ab_torch.py's `run` over the three layer shapes and three
@@ -864,12 +868,16 @@ def check_table_gather(calls) -> dict:
 # channel counts that are odd or not multiples of 8, H or W equal to 1 (one
 # pixel collects both margins of an axis)
 EDGE_FRAMES = ((2, 13, 11, 6), (1, 9, 20, 71), (2, 1, 13, 18), (1, 9, 1, 3), (3, 1, 1, 130))
+# the main path's frames (128², 64², 32² at batch 4) with C not a multiple of
+# 8, which fold_kernel takes on its scalar path
+EDGE_SCALAR_FRAMES = ((4, 128, 128, 130), (4, 64, 64, 250), (4, 32, 32, 516))
 
 
 def check_edge_pad_fold(calls) -> dict:
     """The edge-pad fold on the training step's recorded gradients (the
-    attention's padded tensors), then on EDGE_FRAMES in f32 and bf16 with
-    pads 2 and 5: bit-equal to its plain version (the f32 fold rounded once)
+    attention's padded tensors), then on EDGE_FRAMES and EDGE_SCALAR_FRAMES
+    in f32 and bf16 with pads 2 and 5, each also one element off 16-byte
+    alignment: bit-equal to its plain version (the f32 fold rounded once)
     and to itself on a second call; timed beside the plain version and
     aten's replication_pad2d_backward (float atomics) on the same gradient."""
     import torch
@@ -900,20 +908,25 @@ def check_edge_pad_fold(calls) -> dict:
         key = f"{tuple(gpad.shape)} pad {p} {str(gpad.dtype).replace('torch.', '')}"
         shapes[key] = shapes.get(key, 0) + 1
     gen = torch.Generator(device="cuda").manual_seed(16)
-    for b, h, w, c in EDGE_FRAMES:
+    for b, h, w, c in EDGE_FRAMES + EDGE_SCALAR_FRAMES:
         for dtype in (torch.float32, torch.bfloat16):
             for p in (2, 5):
                 gpad = torch.randn(b, h + 2 * p, w + 2 * p, c, device="cuda", generator=gen)
                 held(gpad.to(dtype), p, f"{(b, h, w, c)} pad {p} {dtype}")
+                # the frame one element off 16-byte alignment (the scalar path)
+                flat = torch.randn(1 + gpad.numel(), device="cuda", generator=gen).to(dtype)
+                held(flat[1:].view(gpad.shape), p, f"{(b, h, w, c)} pad {p} {dtype}, unaligned")
     bnd, by = bound_ms(tot["bytes"], tot["adds"])
     log(f"  edge_pad_fold: {len(calls)} recorded gradients ("
         + ", ".join(f"{k} x{n}" for k, n in shapes.items()) + f") and {len(EDGE_FRAMES)} ragged "
-        f"frames at pads 2 and 5, f32 and bf16: bit-equal to the plain version and to itself; "
+        f"frames and {len(EDGE_SCALAR_FRAMES)} main-path frames with C not a multiple of 8, at "
+        f"pads 2 and 5, f32 and bf16, aligned and one element off: bit-equal to the plain "
+        f"version and to itself; "
         f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, replication_pad2d_backward "
         f"{tot['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by}) over the {len(calls)}")
     return dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bnd,
                 bound_by=by, library_ms=tot["library_ms"],
-                library="torch.ops.aten.replication_pad2d_backward")
+                library="torch.ops.aten.replication_pad2d_backward", functions=["fold_kernel"])
 
 
 def _gather_backward_before(val, idx, n: int):
@@ -935,23 +948,33 @@ def _gather_backward_before(val, idx, n: int):
     return total
 
 
+# scatter_rows' kernel functions (hoig_torch/csrc/table_gather.cu), one
+# launch each per call: the order (count, tiled scan, the tiles' totals,
+# placement, the long segments' sort) and the sum
+SCATTER_FUNCTIONS = ("row_count_kernel", "row_scan_kernel", "row_scan_totals_kernel",
+                     "row_place_kernel", "segment_sort_kernel", "scatter_rows_kernel")
+
+
 def check_scatter_rows(calls) -> dict:
     """scatter_rows on the fp32 step's recorded (gradient, indices, rows) of
     the 9 attention layers: bit-equal to its plain version and to itself on
-    a second call; timed (its stable sort included) beside the plain
-    version, one index_add_ over the same entries (float atomics) and the
-    72 gathers' backward that it replaced (_gather_backward_before), which
-    is also run twice on the same inputs and the elements that differ
-    counted."""
+    a second call; timed whole and as its two stages apart (the order built
+    on the card; the sum in it) beside the plain version, one index_add_
+    over the same entries (float atomics) and the 72 gathers' backward that
+    it replaced (_gather_backward_before), which is also run twice on the
+    same inputs and the elements that differ counted."""
     import torch
 
+    from hoig_torch.ops import table_gather as tg
     from hoig_torch.ops.table_gather import scatter_rows, scatter_rows_reference
 
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, replaced_ms=0.0, bytes=0.0)
+    tot = dict(ms=0.0, order_ms=0.0, sum_ms=0.0, plain_ms=0.0, library_ms=0.0, replaced_ms=0.0,
+               bytes=0.0)
     shapes = {}
     # what the replaced backward does on the same inputs twice (information:
     # float atomics need not differ on every call)
     moved = dict(elements=0, of=0, layers=0)
+    segments = dict(longest=0, over_128=0)
     for (val, idx, n), _ in calls:
         b, e, c = val.shape
         what = f"{tuple(val.shape)} into {n} rows"
@@ -962,37 +985,54 @@ def check_scatter_rows(calls) -> dict:
         moved["layers"] += diff > 0
         del before
         check(b == 1 and e % n == 0, f"scatter_rows: recorded {what}")
+        lens = torch.bincount(idx.reshape(-1), minlength=n)
+        segments["longest"] = max(segments["longest"], int(lens.max()))
+        segments["over_128"] += int((lens > 128).sum())
         out = scatter_rows(val, idx, n)
         check(torch.equal(out, scatter_rows_reference(val, idx, n)),
               f"scatter_rows is not bit-equal to its plain version at {what}")
         check(torch.equal(out, scatter_rows(val, idx, n)),
               f"scatter_rows gave other bits on a second call at {what}")
+        # the two stages apart, on one scratch: the order, then the sum in it
+        part = torch.empty_like(out)
+        scratch = tg.scatter_rows_stages(val, idx, n, part, None, tg.ORDER)
+        tg.scatter_rows_stages(val, idx, n, part, scratch, tg.SUM)
+        check(torch.equal(part, out), f"scatter_rows' stages apart gave other bits at {what}")
         rows = idx.reshape(-1)
         flat = val.reshape(-1, c)
         tot["bytes"] += (val.numel() + out.numel()) * val.element_size() + idx.numel() * 8
         tot["ms"] += device_ms(lambda: scatter_rows(val, idx, n))
+        tot["order_ms"] += device_ms(
+            lambda: tg.scatter_rows_stages(val, idx, n, part, scratch, tg.ORDER))
+        tot["sum_ms"] += device_ms(
+            lambda: tg.scatter_rows_stages(val, idx, n, part, scratch, tg.SUM))
         tot["plain_ms"] += device_ms(lambda: scatter_rows_reference(val, idx, n), reps=3,
                                      behind_sleep=False)
         tot["library_ms"] += device_ms(lambda: torch.zeros(
             (n, c), dtype=val.dtype, device=val.device).index_add_(0, rows, flat))
         tot["replaced_ms"] += device_ms(lambda: _gather_backward_before(val, idx, n), reps=3,
                                         behind_sleep=False)
+        del part, scratch
         key = f"{e // n} x {n} x {c}"
         shapes[key] = shapes.get(key, 0) + 1
     bnd, by = bound_ms(tot["bytes"], 0.0)
     log(f"  scatter_rows: {len(calls)} recorded layers (corners x rows x channels: "
-        + ", ".join(f"{k} x{v}" for k, v in shapes.items()) + ") bit-equal to the plain version "
-        f"and to itself; kernel (sort included) {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+        + ", ".join(f"{k} x{v}" for k, v in shapes.items()) + f"; longest segment "
+        f"{segments['longest']}, {segments['over_128']} rows over 128) bit-equal to the plain "
+        f"version and to itself, and as its two stages apart; kernels {tot['ms']:.4f} ms (the "
+        f"order {tot['order_ms']:.4f}, the sum {tot['sum_ms']:.4f}), plain {tot['plain_ms']:.4f} "
         f"ms, index_add_ {tot['library_ms']:.4f} ms, torch.gather's backward as the step ran it "
         f"before (72 a layer) {tot['replaced_ms']:.4f} ms, bound {bnd:.4f} ms ({by}; "
         f"{tot['bytes'] / 1e9:.3f} GB); that backward called twice on the same inputs: "
         f"{moved['elements']} of {moved['of']} elements differ, in {moved['layers']} of "
         f"{len(calls)} layers")
-    return dict(max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bnd,
-                bound_by=by, library_ms=tot["library_ms"], library="torch.Tensor.index_add_",
+    return dict(max_abs_err=0.0, ms=tot["ms"], order_ms=tot["order_ms"], sum_ms=tot["sum_ms"],
+                plain_ms=tot["plain_ms"], bound_ms=bnd, bound_by=by,
+                library_ms=tot["library_ms"], library="torch.Tensor.index_add_",
                 replaced_ms=tot["replaced_ms"],
                 replaced="torch.gather's backward, 72 a layer (zeros + scatter_add_ + add)",
-                replaced_repeat_differs=moved)
+                replaced_repeat_differs=moved, segments=segments,
+                functions=list(SCATTER_FUNCTIONS))
 
 
 # scatter_rows off the main path's shapes: (B, E, C, rows), odd and narrow
@@ -1002,16 +1042,37 @@ SCATTER_SHAPES = ((2, 300, 1, 40), (1, 257, 3, 500), (3, 1000, 7, 11), (2, 999, 
                   (1, 4000, 128, 300), (2, 513, 130, 97), (1, 64, 512, 5))
 
 
-def check_scatter_ragged() -> None:
+def clamped_corners(b: int, h: int, w: int, reach: float, gen):
+    """(1, 36 * b * h * w) int64: the gather engine's 36 border-clamped
+    corners (corner-major) of a batch-flattened (b, h, w) source under a
+    random flow of up to `reach` pixels, on the card."""
+    import torch
+
+    fy = torch.arange(h, device="cuda")[:, None] + (torch.rand(
+        b, h, w, device="cuda", generator=gen) * 2 - 1) * reach
+    fx = torch.arange(w, device="cuda")[None, :] + (torch.rand(
+        b, h, w, device="cuda", generator=gen) * 2 - 1) * reach
+    y0, x0 = fy.floor().long(), fx.floor().long()
+    base = (torch.arange(b, device="cuda") * h * w)[:, None, None]
+    return torch.stack([base + (y0 + dy).clamp(0, h - 1) * w + (x0 + dx).clamp(0, w - 1)
+                        for dy in range(-2, 4) for dx in range(-2, 4)]).reshape(1, -1)
+
+
+def check_scatter_ragged() -> dict:
     """scatter_rows on SCATTER_SHAPES with indices outside [0, rows) mixed
     in, f32 and bf16, and on edge cases (every entry on one row, no entry at
-    all, a base two bytes off 16-byte alignment, the pinned order [1e8, 1,
-    -1e8] whose f32 sum is exactly 0): bit-equal to the plain version and to
-    itself; GatherRows' forward bit-equal to torch.gather and its backward
-    one scatter_rows launch."""
+    all, 100,000 entries on one row, a gather layer whose border corners
+    clamp onto the edge rows, a base two bytes off 16-byte alignment, the
+    pinned order [1e8, 1, -1e8] whose f32 sum is exactly 0): bit-equal to
+    the plain version and to itself; the scratch's size as table_gather.cu
+    counts it; GatherRows' forward bit-equal to torch.gather and its
+    backward one scatter_rows launch."""
+    import ctypes
+
     import torch
 
     from hoig_torch.ops import _cuda
+    from hoig_torch.ops import table_gather as tg
     from hoig_torch.ops.table_gather import (gather_rows_nhwc, scatter_rows,
                                              scatter_rows_reference)
 
@@ -1038,6 +1099,30 @@ def check_scatter_ragged() -> None:
     flat = torch.randn(1 + 2 * 300 * 16, device="cuda", generator=gen).bfloat16()
     held(flat[1:].view(2, 300, 16), torch.randint(0, 50, (2, 300), device="cuda", generator=gen),
          50, "a bf16 base 2 bytes off alignment")
+    # long segments: 100,000 entries on one row among short ones (the order's
+    # chunked network in device memory; the plain version runs on the CPU,
+    # where its loop over 100,000 segment positions takes seconds, not a
+    # minute), and a gather-engine layer whose flow clamps most border
+    # corners onto the edge rows (segments of hundreds to thousands)
+    idx = torch.randint(0, 64, (1, 110_000), device="cuda", generator=gen)
+    idx[:, 5_000:105_000] = 17
+    val = torch.randn(1, 110_000, 4, device="cuda", generator=gen)
+    out = scatter_rows(val, idx, 64)
+    check(torch.equal(out.cpu(), scatter_rows_reference(val.cpu(), idx.cpu(), 64)),
+          "scatter_rows is not bit-equal to its plain version with 100,000 entries on one row")
+    check(torch.equal(out, scatter_rows(val, idx, 64)),
+          "scatter_rows gave other bits on a second call with 100,000 entries on one row")
+    clamped = clamped_corners(2, 64, 64, 12.0, gen)
+    longest = int(torch.bincount(clamped.reshape(-1)).max())
+    for c, dtype in ((256, torch.float32), (256, torch.bfloat16), (7, torch.float32)):
+        val = torch.randn(1, clamped.shape[1], c, device="cuda", generator=gen).to(dtype)
+        held(val, clamped, 2 * 64 * 64, f"a clamped 2 x 64 x 64 layer, C {c} {dtype}")
+    lib = _cuda.kernel("table_gather", "hoig_scatter_rows_scratch", [ctypes.c_longlong] * 2)
+    lib.restype = ctypes.c_longlong
+    for rows, entries in ((1, 0), (4095, 7), (4096, 1), (131_072, 4_718_592), (2**30, 2**31 - 1)):
+        check(lib(rows, entries) == tg.scatter_scratch_ints(rows, entries),
+              f"table_gather.cu's scratch for {rows} rows, {entries} entries is not "
+              "scatter_scratch_ints'")
     pinned = torch.tensor([[[1e8], [1.0], [-1e8]]], device="cuda")
     check(float(held(pinned, torch.zeros((1, 3), dtype=torch.long, device="cuda"), 1,
                      "the pinned order").item()) == 0.0, "scatter_rows added [1e8, 1, -1e8] "
@@ -1056,9 +1141,13 @@ def check_scatter_ragged() -> None:
           "GatherRows' backward is not the plain scatter")
     log(f"  scatter_rows ragged: {len(SCATTER_SHAPES)} shapes (C in "
         f"{sorted({s[2] for s in SCATTER_SHAPES})}, indices outside the rows mixed in), f32 and "
-        "bf16, every entry on one row, no entry, an unaligned bf16 base, the pinned order "
-        "[1e8, 1, -1e8] -> 0: bit-equal to the plain version and to itself; GatherRows: "
+        "bf16, every entry on one row, no entry, 100,000 entries on one row, a clamped 2 x 64 x "
+        f"64 gather layer (longest segment {longest}; C 256 f32 and bf16, C 7), an unaligned "
+        "bf16 base, the pinned order [1e8, 1, -1e8] -> 0: bit-equal to the plain version and "
+        "to itself; the scratch's size agrees with table_gather.cu's; GatherRows: "
         "torch.gather's forward, one scatter_rows launch backward")
+    return dict(shapes=len(SCATTER_SHAPES), one_row_entries=100_000,
+                clamped_layer_longest_segment=longest)
 
 
 def check_ragged_shapes() -> None:
@@ -1642,7 +1731,7 @@ def fp32_phase(env, ccfg) -> tuple[dict, dict]:
     result["launches"] = launches["scatter_rows"]
     del rec, calls
     torch.cuda.empty_cache()
-    check_scatter_ragged()
+    result["ragged"] = check_scatter_ragged()
 
     log("  (e) the fp32 step's first step twice with full remat and once with remat off: bit "
         "for bit")
@@ -3357,7 +3446,7 @@ def tools_phase(env, out_dir: Path, serve: dict, train: dict) -> dict:
         "fp32_b8_gather_train": _profile_leg(
             "fp32_b8_gather_train", ["--dtype", "fp32", "--engine", "gather", "--batch", "8",
                                      "--steps", "2", "--warmup", "1"], out_dir,
-            FP32_LAUNCHES_PER_STEP, dict(b2b3, fold_kernel=9, scatter_rows_kernel=9)),
+            FP32_LAUNCHES_PER_STEP, dict(b2b3, fold_kernel=9, **{k: 9 for k in SCATTER_FUNCTIONS})),
         "bf16_b4_fused_serve": _profile_leg(
             "bf16_b4_fused_serve", ["--dtype", "bf16", "--engine", "pallas", "--leg", "fwd",
                                     "--batch", str(BATCH), "--steps", "2", "--warmup", "2"],
@@ -4134,7 +4223,8 @@ def main() -> int:
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                    library_ms=r["library_ms"])
         row.update({k: r[k] for k in ("library", "yardstick_ms", "yardstick", "f32_ms",
-                                      "f32_bound_ms", "replaced_ms", "replaced") if k in r})
+                                      "f32_bound_ms", "replaced_ms", "replaced", "order_ms",
+                                      "sum_ms", "functions") if k in r})
         if name in RENDER_LAUNCHES:
             # launches of one renderer.render_rgb call (2x anti-aliasing) in phase 11
             row["launches_renderer"] = offpath["renderer"]["calls"]["render_rgb"]["launches"].get(

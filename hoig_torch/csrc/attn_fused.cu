@@ -729,10 +729,20 @@ bwd_c_gattn_kernel(const float* __restrict__ sdot_part, const float* __restrict_
 // backward): border pixels collect their margin's entries, the columns of a
 // row in ascending order first, then the rows in ascending order (the gsrc
 // projection's; bwd_c_kernel folds in its tile, in the same order), each
-// sum starting from its first entry, in f32, rounded once to T. A block per
-// output pixel, its threads over the channels; p is the pad (kPad for the
-// gsrc projection; 2 and 5 for the generator's edge pads, entry point
-// hoig_edge_pad_fold).
+// sum starting from its first entry, in f32, rounded once to T; an interior
+// pixel (one entry) is a copy. p is the pad (kPad for the gsrc projection;
+// 2 and 5 for the generator's edge pads, entry point hoig_edge_pad_fold).
+// What bounds it: HBM bytes, the padded frame read once and the image
+// written once. Design: a block covers a strip of kThreads / lanes pixels,
+// `lanes` threads a pixel, each moving VEC channels (16 bytes where C and
+// the pointers allow: 8 bf16 or 4 f32, so a warp's loads and stores are
+// 512 contiguous bytes along an image row); the grid walks the pixels in at
+// most four waves of the SMs, the images' first and last rows first: a
+// corner's margin ((p + 1)^2 entries, a chain of dependent loads) then
+// overlaps the interior's copies instead of trailing them. Probes that lost
+// on the H100 (more registers cost more occupancy than they bought): a
+// border pixel's loads issued 4 or 8 ahead, 2 or 4 pixels a thread, 2 to 6
+// margin rows summed side by side.
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
@@ -741,40 +751,85 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
+// VEC consecutive elements of T, loaded and stored as one unit
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+constexpr int kFoldBlocks = 132 * 8 * 4;  // four waves of 8 blocks on each of the H100's SMs
+
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-fold_kernel(const T* __restrict__ gpad, T* __restrict__ out, int h, int w, int c, int p) {
-  // one block per output pixel, its threads over the channels (coalesced)
-  const int pix = blockIdx.x;
-  const int x = pix % w;
-  const int y = (pix / w) % h;
-  const long long bb = pix / (h * w);
-  const int hp = h + 2 * p;
-  const int wp = w + 2 * p;
-  const int r_lo = y == 0 ? 0 : y + p;
-  const int r_hi = y == h - 1 ? hp - 1 : y + p;
-  const int c_lo = x == 0 ? 0 : x + p;
-  const int c_hi = x == w - 1 ? wp - 1 : x + p;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    float tot = 0.f;
-    for (int r = r_lo; r <= r_hi; ++r) {
-      const T* src = gpad + ((bb * hp + r) * wp + c_lo) * c + ch;
-      float row = to_f32(src[0]);
-      for (int cc = 1; cc <= c_hi - c_lo; ++cc) {
-        row = __fadd_rn(row, to_f32(src[(long long)cc * c]));
+fold_kernel(const T* __restrict__ gpad, T* __restrict__ out, int b, int h, int w, int c, int p,
+            int lanes) {
+  using P = Pack<T, VEC>;
+  const int per = kThreads / lanes;
+  const int sub = threadIdx.x % lanes;
+  const unsigned n_pix = b * h * w;
+  const long long pitch = (long long)(w + 2 * p) * c;
+  // unsigned: s + the grid's stride stays below 2^32 for any int n_pix
+  for (unsigned s = blockIdx.x * per + threadIdx.x / lanes; s < n_pix; s += gridDim.x * per) {
+    // slot s walks the images' first rows, then their last rows, then the
+    // rest, so that the corners' long folds start in the first wave
+    const int x = static_cast<int>(s % w);
+    const int bb = static_cast<int>(s / w % b);
+    const int yy = static_cast<int>(s / w / b);
+    const int y = yy == 0 ? 0 : yy == 1 ? h - 1 : yy - 1;
+    const int r_lo = y == 0 ? 0 : y + p;
+    const int r_hi = y == h - 1 ? h + 2 * p - 1 : y + p;
+    const int c_lo = x == 0 ? 0 : x + p;
+    const int c_hi = x == w - 1 ? w + 2 * p - 1 : x + p;
+    const T* first = gpad + ((long long)bb * (h + 2 * p) + r_lo) * pitch + (long long)c_lo * c;
+    T* dst = out + (((long long)bb * h + y) * w + x) * c;
+    for (int ch = sub * VEC; ch < c; ch += lanes * VEC) {
+      if (r_lo == r_hi && c_lo == c_hi) {
+        *reinterpret_cast<P*>(dst + ch) = *reinterpret_cast<const P*>(first + ch);
+        continue;
       }
-      tot = r == r_lo ? row : __fadd_rn(tot, row);
+      float tot[VEC];
+      for (int r = 0; r <= r_hi - r_lo; ++r) {
+        const T* src = first + r * pitch + ch;
+        float row[VEC];
+        for (int cc = 0; cc <= c_hi - c_lo; ++cc) {
+          const P q = *reinterpret_cast<const P*>(src + (long long)cc * c);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            row[i] = cc == 0 ? to_f32(q.v[i]) : __fadd_rn(row[i], to_f32(q.v[i]));
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) tot[i] = r == 0 ? row[i] : __fadd_rn(tot[i], row[i]);
+      }
+      P o;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o.v[i] = from_f32<T>(tot[i]);
+      *reinterpret_cast<P*>(dst + ch) = o;
     }
-    out[(long long)pix * c + ch] = from_f32<T>(tot);
   }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_fold_vec(const T* gpad, T* out, int b, int h, int w, int c, int p,
+                            cudaStream_t s) {
+  // the fewest lanes (a power of two, at most the block) that cover the
+  // pixel's channels in one pass
+  int lanes = 1;
+  while (lanes < kThreads && lanes * VEC < c) lanes *= 2;
+  const int per = kThreads / lanes;
+  const long long need = ((long long)b * h * w + per - 1) / per;
+  fold_kernel<T, VEC><<<(unsigned)(need < kFoldBlocks ? need : kFoldBlocks), kThreads, 0, s>>>(
+      gpad, out, b, h, w, c, p, lanes);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_fold(const T* gpad, T* out, int b, int h, int w, int c, int p, cudaStream_t s) {
-  const int warps = (c + 31) / 32;
-  const int threads = warps * 32 < kThreads ? warps * 32 : kThreads;
-  fold_kernel<T><<<(unsigned)(b * h * w), threads, 0, s>>>(gpad, out, h, w, c, p);
-  return cudaGetLastError();
+  constexpr int kVec = 16 / sizeof(T);
+  const bool wide = c % kVec == 0 && reinterpret_cast<std::uintptr_t>(gpad) % 16 == 0 &&
+                    reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+  return wide ? launch_fold_vec<T, kVec>(gpad, out, b, h, w, c, p, s)
+              : launch_fold_vec<T, 1>(gpad, out, b, h, w, c, p, s);
 }
 
 // --------------------------------------------------------------- bwd_a
@@ -1650,7 +1705,7 @@ extern "C" int hoig_attn_fused_bwd_a_dw_tc(const void* src, const void* dg, void
 extern "C" int hoig_edge_pad_fold(const void* gpad, void* out, int b, int h, int w, int c, int p,
                                   int is_bf16, void* stream) {
   if (b < 1 || h < 1 || w < 1 || c < 1 || p < 0) return cudaErrorInvalidValue;
-  if ((long long)b * h * w > 0x7fffffff) return cudaErrorInvalidValue;  // blocks: one per pixel
+  if ((long long)b * h * w > 0x7fffffff) return cudaErrorInvalidValue;  // pixels: an int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return launch_fold<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(gpad),

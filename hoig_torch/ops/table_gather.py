@@ -17,8 +17,10 @@ the soft rasterizer's winning edges and the faces' vertices. Its forward
 is the exact library gather; its backward is `scatter_rows`, whose sums
 run in a fixed order (torch.gather's own backward adds with float atomics
 on CUDA, in an order that changes from run to run). On CUDA tensors
-`scatter_rows` launches scatter_rows_kernel (counter `scatter_rows`); on
-CPU tensors it runs `scatter_rows_reference`, which adds in the same order.
+`scatter_rows` calls hoig_scatter_rows (counter `scatter_rows`), which
+builds the order on the card from integers (count, scan, place, sort each
+segment) and sums each row in it (csrc/table_gather.cu); on CPU tensors it
+runs `scatter_rows_reference`, which adds in the same order.
 """
 
 from __future__ import annotations
@@ -32,7 +34,12 @@ from hoig_torch.ops import _cuda
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _P]
-_SCATTER_ARGS = [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P]
+# val, idx, out, scratch, scratch length, b, e, n, c, bf16, stages, stream
+_SCATTER_ARGS = [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _P]
+# hoig_scatter_rows' stages: build the order into the scratch, sum in it
+ORDER, SUM = 1, 2
+SCAN_TILE = 4096  # table_gather.cu's kScanTile: rows per block of its scan
+_INT_MAX = 2**31 - 1
 
 
 def gather_rows_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -97,12 +104,42 @@ def scatter_rows_reference(val: torch.Tensor, idx: torch.Tensor, n: int) -> torc
     return acc.to(val.dtype).reshape(b, n, c)
 
 
+def scatter_scratch_ints(rows: int, entries: int) -> int:
+    """The int32 scratch of hoig_scatter_rows (its scratch_ints, which the
+    entry point checks): counts and the long rows' count, the tiled scan
+    and its tiles' totals, the long rows, the entries' ids."""
+    tiles = -(-(rows + 1) // SCAN_TILE)
+    return 2 * (rows + 1) + 1 + tiles + rows + entries
+
+
+def scatter_rows_stages(val: torch.Tensor, idx: torch.Tensor, n: int, out: torch.Tensor,
+                        scratch: torch.Tensor | None, stages: int) -> torch.Tensor:
+    """One call of hoig_scatter_rows on a contiguous CUDA val (B, E, C),
+    writing out (B, n, C): `stages` ORDER builds the order into the scratch,
+    SUM sums in the order the scratch holds, both is scatter_rows. Returns
+    the scratch (allocated when None). Counts no launch: scatter_rows does,
+    and the order and the sum are timed apart through this."""
+    b, e, c = val.shape
+    if b * e > _INT_MAX or b * n + 2 > _INT_MAX:
+        raise ValueError(f"scatter_rows: {b * e} entries into {b * n} rows exceed int32 ids")
+    idx = idx.long().contiguous()
+    if scratch is None:
+        scratch = torch.empty(scatter_scratch_ints(b * n, b * e), dtype=torch.int32,
+                              device=val.device)
+    fn = _cuda.kernel("table_gather", "hoig_scatter_rows", _SCATTER_ARGS)
+    err = fn(val.data_ptr(), idx.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+             b, e, n, c, int(val.dtype == torch.bfloat16), stages, _cuda.stream_ptr())
+    _cuda.check("table_gather", err, "scatter_rows")
+    return scratch
+
+
 def scatter_rows(val: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """(B, E, C) f32 or bf16 entries, (B, E) integer rows -> (B, n, C) in
     val's dtype: out[b, r] = the sum of val[b, e] over the e (ascending)
     with idx[b, e] == r, taken in f32 and rounded once; a row with no entry
     is 0, an entry outside [0, n) adds to no row. The transpose of a row
-    gather, in an order that does not change from run to run."""
+    gather, in an order that does not change from run to run. On the card
+    B * E and B * n + 2 must fit an int32."""
     if val.dim() != 3 or idx.shape != val.shape[:2]:
         raise ValueError(f"idx {tuple(idx.shape)} does not fit val {tuple(val.shape)}")
     if val.device.type == "cpu":
@@ -114,12 +151,7 @@ def scatter_rows(val: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     out = torch.empty((b, n, c), dtype=val.dtype, device=val.device)
     if out.numel() == 0:
         return out
-    val = val.contiguous()
-    perm, starts = scatter_order(idx, n)
-    fn = _cuda.kernel("table_gather", "hoig_scatter_rows", _SCATTER_ARGS)
-    err = fn(val.data_ptr(), perm.data_ptr(), starts.data_ptr(), out.data_ptr(), b * n, c,
-             int(val.dtype == torch.bfloat16), _cuda.stream_ptr())
-    _cuda.check("table_gather", err, "scatter_rows")
+    scatter_rows_stages(val.contiguous(), idx, n, out, None, ORDER | SUM)
     _cuda.count_launch("scatter_rows")
     return out
 

@@ -159,7 +159,9 @@ KERNEL_CLASSES = (
                               "gather_kernel", "conv5_kernel", "conv5_tc_kernel",
                               "fwd_pixel_kernel", "bwd_c_kernel", "bwd_c_gattn_kernel",
                               "fold_kernel", "dg_kernel", "dw_kernel", "dw_tc_kernel",
-                              "slice_sum_kernel", "scatter_rows_kernel")),
+                              "slice_sum_kernel", "scatter_rows_kernel", "row_count_kernel",
+                              "row_scan_kernel", "row_scan_totals_kernel", "row_place_kernel",
+                              "segment_sort_kernel")),
     ("collectives (NCCL)", ("nccl",)),
     # cuBLAS's kernels are xmma and cutlass kernels too: a convolution's name
     # says fprop, dgrad or wgrad, implicit_gemm, cudnn or conv

@@ -144,8 +144,12 @@ class _FakeLibrary:
 def test_device_gradient_goes_to_the_fold_kernel(dtype, err, monkeypatch):
     """A gradient off the CPU goes to hoig_edge_pad_fold (here on a stood-in
     card: meta tensors, the entry point replaced) with B, H, W, C, the pad
-    and the bf16 flag, and counts one edge_pad_fold launch; a launch that
-    returns a CUDA error raises and counts none."""
+    and the bf16 flag (pointers as c_void_p, the rest as c_int), and counts
+    one edge_pad_fold launch; so does a frame whose C is not a multiple of
+    the 16-byte vector (the kernel's scalar path); a launch that returns a
+    CUDA error raises and counts none."""
+    import ctypes
+
     from hoig_torch.ops import _cuda
 
     passed = []
@@ -158,16 +162,67 @@ def test_device_gradient_goes_to_the_fold_kernel(dtype, err, monkeypatch):
     monkeypatch.setattr(_cuda, "require_cuda", lambda *tensors: None)
     monkeypatch.setattr(_cuda, "stream_ptr", lambda: 0)
     monkeypatch.setattr(_cuda, "kernel", lambda lib, symbol, argtypes: (
-        (lib, symbol, len(argtypes)) == ("attn_fused", "hoig_edge_pad_fold", 9) and launch))
+        (lib, symbol, argtypes) == ("attn_fused", "hoig_edge_pad_fold",
+                                    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        and launch))
     monkeypatch.setattr(_cuda, "_library", lambda lib: _FakeLibrary())
     _cuda.reset_launch_counts()
-    g = torch.empty(2, 3 + 4, 5 + 4, 6, dtype=DTYPES[dtype], device="meta")
-    if err:
-        with pytest.raises(RuntimeError, match="edge_pad_fold kernel launch failed"):
-            af.edge_pad_fold(g, 2)
-        assert _cuda.launch_counts() == {}
-    else:
-        out = af.edge_pad_fold(g, 2)
-        assert out.shape == (2, 3, 5, 6) and out.dtype == g.dtype
-        assert _cuda.launch_counts() == {"edge_pad_fold": 1}
-    assert passed[0][2:8] == (2, 3, 5, 6, 2, int(dtype == "bfloat16"))
+    for c in (6, 5):
+        g = torch.empty(2, 3 + 4, 5 + 4, c, dtype=DTYPES[dtype], device="meta")
+        if err:
+            with pytest.raises(RuntimeError, match="edge_pad_fold kernel launch failed"):
+                af.edge_pad_fold(g, 2)
+            assert _cuda.launch_counts() == {}
+        else:
+            out = af.edge_pad_fold(g, 2)
+            assert out.shape == (2, 3, 5, c) and out.dtype == g.dtype
+        assert passed[-1][2:8] == (2, 3, 5, c, 2, int(dtype == "bfloat16"))
+    assert _cuda.launch_counts() == ({} if err else {"edge_pad_fold": 2})
+
+
+FOLD_THREADS, FOLD_BLOCKS = 256, 132 * 8 * 4  # attn_fused.cu's kThreads and kFoldBlocks
+
+
+def _fold_slot_pixel(s, b, h, w):
+    """fold_kernel's slot -> (image, row, column): the images' first rows,
+    then their last rows, then the rest, row by row."""
+    x, bb, yy = s % w, s // w % b, s // w // b
+    y = np.where(yy == 0, 0, np.where(yy == 1, h - 1, yy - 1))
+    return bb, y, x
+
+
+@pytest.mark.parametrize("b,h,w,c,vec", [(4, 128, 128, 128, 8), (4, 32, 32, 512, 8),
+                                         (4, 64, 64, 256, 4), (3, 1, 1, 130, 1),
+                                         (1, 9, 20, 71, 1), (2, 13, 11, 6, 1), (1, 4, 4, 1024, 4),
+                                         (64, 64, 64, 8, 8), (3, 2, 7, 16, 8)])
+def test_fold_grid_covers_every_output_once(b, h, w, c, vec):
+    """fold_kernel's launch: a strip of kThreads / lanes slots a block,
+    `lanes` threads a slot moving VEC channels, the grid at most four waves
+    of 8 blocks on 132 SMs walking the slots, a slot's pixel from the
+    images' first rows, then their last rows, then the rest: every (pixel,
+    channel) written by exactly one thread once, the first and last rows
+    (the corners' long folds) in the first 2 B W slots; at the main path's
+    bf16 widths one pass of 16 to 64 lanes."""
+    lanes = 1
+    while lanes < FOLD_THREADS and lanes * vec < c:
+        lanes *= 2
+    per = FOLD_THREADS // lanes
+    n_pix = b * h * w
+    grid = min(-(-n_pix // per), FOLD_BLOCKS)
+    t = np.arange(FOLD_THREADS)
+    first = (np.arange(grid)[:, None] * per + t[None, :] // lanes).ravel()
+    sub = np.tile(t % lanes, grid)
+    hits = np.zeros((b, h, w, c), np.int64)
+    for k in range(-(-n_pix // (grid * per))):
+        slot = first + k * grid * per
+        for cb in range(0, c, lanes * vec):
+            ch = cb + sub * vec
+            keep = (slot < n_pix) & (ch < c)
+            bb, y, x = _fold_slot_pixel(slot[keep], b, h, w)
+            for i in range(vec):
+                np.add.at(hits, (bb, y, x, ch[keep] + i), 1)
+    assert (hits == 1).all()
+    _, y, _ = _fold_slot_pixel(np.arange(min(2, h) * b * w), b, h, w)
+    assert set(y.tolist()) == {0, h - 1}
+    if vec == 8 and c in (128, 256, 512):
+        assert lanes * vec == c

@@ -10,8 +10,11 @@ GatherRows' forward is torch.gather's bit for bit and its backward is held
 to jax.vjp of jnp.take_along_axis; the gather engine, which now fetches its
 36 corners in one GatherRows per attention layer, is held to the JAX
 package's engine (values and gradients) and to the per-corner gathers it
-replaced (bit for bit). The wrapper's CUDA branch is exercised with meta
-tensors standing in for the card."""
+replaced (bit for bit). The card builds the order itself (count, tiled
+scan, placement in whatever order its atomics give, a sort of each
+segment); a numpy model of those steps is held to `scatter_order`, and
+the kernels' launch shapes to covering every output once. The wrapper's
+CUDA branch is exercised with meta tensors standing in for the card."""
 
 import jax
 import jax.numpy as jnp
@@ -261,21 +264,214 @@ def _stand_in_card(monkeypatch) -> list:
 
 @pytest.mark.parametrize("dtype,is_bf16", [(torch.float32, 0), (torch.bfloat16, 1)])
 def test_off_the_cpu_the_kernel_launches(dtype, is_bf16, monkeypatch):
-    """A tensor off the CPU goes to hoig_scatter_rows (rows = B * n, the
-    channel count, the dtype flag), counted once; GatherRows' backward
-    launches it; float64 is refused, never summed elsewhere."""
+    """A tensor off the CPU goes to hoig_scatter_rows (B, E, n, the channel
+    count, the dtype flag, both stages; int32 scratch of
+    scatter_scratch_ints(B * n, B * E), pointers as c_void_p and its length
+    as c_longlong), counted once, with no sort or search of the keys on the
+    host's side; GatherRows' backward launches it; float64 is refused,
+    never summed elsewhere, and so are more entries than int32 ids hold."""
+    import ctypes
+
     asked = _stand_in_card(monkeypatch)
+    for name in ("sort", "searchsorted", "argsort"):
+        monkeypatch.setattr(torch, name, lambda *a, **k: pytest.fail("the order was made by torch"))
     val = torch.empty(2, 10, 3, device="meta", dtype=dtype)
     idx = torch.empty(2, 10, dtype=torch.long, device="meta")
     out = scatter_rows(val, idx, 5)
     assert out.shape == (2, 5, 3) and out.dtype == dtype
-    assert [(s, a[4:7]) for s, a in asked] == [("hoig_scatter_rows", (10, 3, is_bf16))]
+    assert [(s, a[4:11]) for s, a in asked] == [
+        ("hoig_scatter_rows", (tg.scatter_scratch_ints(10, 20), 2, 10, 5, 3, is_bf16, 3))]
+    assert tg._SCATTER_ARGS[:4] == [ctypes.c_void_p] * 4 and tg._SCATTER_ARGS[-1] == ctypes.c_void_p
+    assert tg._SCATTER_ARGS[4] == ctypes.c_longlong and tg._SCATTER_ARGS[5:11] == [ctypes.c_int] * 6
     assert _cuda.launch_counts() == {"scatter_rows": 1}
     src = torch.empty(2, 5, 3, device="meta", dtype=dtype).requires_grad_()
     gather_rows_nhwc(src, idx).backward(torch.empty(2, 10, 3, device="meta", dtype=dtype))
     assert _cuda.launch_counts() == {"scatter_rows": 2}
     with pytest.raises(TypeError):
         scatter_rows(val.double(), idx, 5)
+    big = 2**30
+    with pytest.raises(ValueError, match="int32"):
+        scatter_rows(torch.empty(2, big, 1, device="meta", dtype=dtype),
+                     torch.empty(2, big, dtype=torch.long, device="meta"), 5)
+    assert _cuda.launch_counts() == {"scatter_rows": 2}
+
+
+# table_gather.cu's constants that the models below repeat
+SORT_CAP, WARP_SORT, SUM_THREADS, STAGE, RANK_MAX = 8192, 256, 256, 2048, 512
+
+
+def _network_step(a, n, m, lg, flip):
+    """segment_sort_kernel's network_step: every comparator puts the smaller
+    id first; ids past n count as +infinity and are never touched."""
+    q = np.arange(m // 2)
+    half = 1 << lg
+    blk = (q >> lg) << (lg + 1)
+    off = q & (half - 1)
+    lo = blk + off
+    hi = blk + 2 * half - 1 - off if flip else lo + half
+    keep = hi < n
+    lo, hi = lo[keep], hi[keep]
+    x, y = a[lo], a[hi]
+    a[lo], a[hi] = np.minimum(x, y), np.maximum(x, y)
+
+
+def _log2_ceil(n):
+    return max(n - 1, 0).bit_length()
+
+
+def _bitonic(a):
+    m = 1 << _log2_ceil(len(a))
+    for lk in range(1, _log2_ceil(len(a)) + 1):
+        _network_step(a, len(a), m, lk - 1, True)
+        for lj in range(lk - 2, -1, -1):
+            _network_step(a, len(a), m, lj, False)
+
+
+def _network_sort(seg, cap):
+    """segment_sort_kernel on one listed segment, with `cap` ids in shared
+    memory (a power of two): the whole network there, or sort_long's chunks
+    of cap and its merges' steps of cap and more over the segment."""
+    a = seg.copy()
+    n = len(a)
+    if n <= cap:
+        _bitonic(a)
+        return a
+    for c0 in range(0, n, cap):
+        _bitonic(a[c0:c0 + cap])
+    lcap = cap.bit_length() - 1
+    for lk in range(lcap + 1, _log2_ceil(n) + 1):
+        _network_step(a, n, 1 << _log2_ceil(n), lk - 1, True)
+        for lj in range(lk - 2, lcap - 1, -1):
+            _network_step(a, n, 1 << _log2_ceil(n), lj, False)
+        for c0 in range(0, n, cap):
+            chunk = a[c0:c0 + cap]
+            for lj in range(lcap - 1, -1, -1):
+                _network_step(chunk, len(chunk), cap, lj, False)
+    return a
+
+
+def _order_model(idx, n, rank_max, cap, tile, seed):
+    """The card's order (table_gather.cu) in numpy, step by step: counts per
+    row; their exclusive scan in tiles of `tile` rows plus the scanned
+    tiles' totals; the rows longer than rank_max listed; each entry placed
+    into its segment by a decrementing counter, the entries taken in a
+    scrambled order (the atomics' order is any); the listed segments sorted
+    by the network, the others by rank (the sum kernel's: the number of
+    smaller ids). Returns (ids, starts) as scatter_order's (perm of the
+    entries inside [0, n), starts)."""
+    b, e = idx.shape
+    rows = b * n
+    keys = (np.arange(b)[:, None] * n + idx).ravel()
+    inside = ((idx >= 0) & (idx < n)).ravel()
+    counts = np.zeros(rows + 1, np.int64)
+    np.add.at(counts, keys[inside], 1)
+    tiles = -(-(rows + 1) // tile)
+    t = np.zeros(tiles * tile, np.int64)
+    t[:rows + 1] = counts
+    t = t.reshape(tiles, tile)
+    loc = (np.cumsum(t, 1) - t).ravel()[:rows + 1]
+    tot = np.cumsum(t.sum(1)) - t.sum(1)
+    starts = loc + tot[np.arange(rows + 1) // tile]
+    listed = set(np.nonzero(counts > rank_max)[0].tolist())
+    left = counts.copy()
+    ids = np.full(int(starts[-1]), -1, np.int64)
+    for j in np.random.RandomState(seed).permutation(b * e):
+        if inside[j]:
+            left[keys[j]] -= 1
+            ids[starts[keys[j]] + left[keys[j]]] = j
+    assert not left.any() and (ids >= 0).all()
+    for r in range(rows):
+        seg = ids[starts[r]:starts[r + 1]]
+        if r in listed:
+            ids[starts[r]:starts[r + 1]] = _network_sort(seg, cap)
+        else:
+            ranked = np.empty_like(seg)
+            for v in seg:
+                ranked[(seg < v).sum()] = v
+            ids[starts[r]:starts[r + 1]] = ranked
+    return ids, starts
+
+
+def _clamped_layer(h, w, reach, rng):
+    """A gather-engine layer's 36 border-clamped corners of an h x w frame
+    under a flow of up to `reach` pixels: most corners of the border pixels
+    clamp onto the edge rows."""
+    fy = np.arange(h)[:, None] + (rng.rand(h, w) * 2 - 1) * reach
+    fx = np.arange(w)[None, :] + (rng.rand(h, w) * 2 - 1) * reach
+    y0, x0 = np.floor(fy).astype(np.int64), np.floor(fx).astype(np.int64)
+    return np.stack([np.clip(y0 + dy, 0, h - 1) * w + np.clip(x0 + dx, 0, w - 1)
+                     for dy in range(-2, 4) for dx in range(-2, 4)]).reshape(1, -1)
+
+
+# (indices, rows, rank limit, shared-memory cap, scan tile)
+ORDER_CASES = {
+    "outside_rows": (lambda r: r.randint(-3, 43, (2, 300)), 40, 8, 16, 8),
+    "empty_rows": (lambda r: r.choice(10, (3, 200)), 50, 8, 16, 16),
+    "one_row": (lambda r: np.full((1, 1000), 3), 7, 128, 64, tg.SCAN_TILE),
+    "clamped_layer": (lambda r: _clamped_layer(12, 12, 8.0, r), 144, 32, 32, 64),
+    "main_path_constants": (lambda r: _clamped_layer(20, 20, 8.0, r), 400, RANK_MAX, WARP_SORT,
+                            tg.SCAN_TILE),
+}
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_order_built_on_the_card_is_scatter_order(case, seed):
+    """The card's order (modelled in numpy, with a scrambled placement) is
+    scatter_order's: the same ids in the same segments; indices outside
+    [0, n), empty rows, every entry on one row (the network's chunked path)
+    and a clamped gather layer (long border segments) included. Summed in
+    that order, in f32 from 0, it gives scatter_rows_reference's bits."""
+    make, n, rank_max, cap, tile = ORDER_CASES[case]
+    rng = np.random.RandomState(seed + 10 * len(case))
+    idx = make(rng)
+    ids, starts = _order_model(idx, n, rank_max, cap, tile, seed)
+    perm, want = tg.scatter_order(T(idx), n)
+    assert starts.tolist() == want.tolist()
+    assert ids.tolist() == perm[:int(want[-1])].tolist()
+    b, e = idx.shape
+    val = rng.randn(b * e, 3).astype(np.float32)
+    acc = np.zeros((b * n, 3), np.float32)
+    for r in range(b * n):
+        for j in ids[starts[r]:starts[r + 1]]:
+            acc[r] = acc[r] + val[j]
+    ref = scatter_rows_reference(T(val.reshape(b, e, 3)), T(idx), n)
+    assert np.array_equal(acc.reshape(b, n, 3), ref.numpy())
+
+
+def _sum_plan(c, vec):
+    """table_gather.cu's sum_plan: lanes a row and the longest segment the
+    sum kernel ranks itself (at most one chunk of its staging)."""
+    lanes = 1
+    while lanes < SUM_THREADS and lanes * vec < c:
+        lanes *= 2
+    chunk = STAGE // (SUM_THREADS // lanes)
+    return lanes, min(chunk, RANK_MAX), chunk
+
+
+@pytest.mark.parametrize("c,vec", [(128, 4), (256, 4), (512, 4), (512, 8), (1, 1), (3, 1),
+                                   (9, 1), (130, 1), (1030, 1), (4096, 8)])
+def test_sum_kernel_covers_every_output_once(c, vec):
+    """scatter_rows_kernel's shape: `lanes` threads a row, VEC channels a
+    thread, kSumThreads / lanes rows a block, the channel passes of
+    lanes * VEC: every (row, channel) written by exactly one thread once,
+    and the segments it ranks itself fit one chunk of its staging. The main
+    path's widths (128 to 512 f32) take one pass of 32 to 128 lanes."""
+    lanes, rank_max, chunk = _sum_plan(c, vec)
+    rows = 37
+    groups = SUM_THREADS // lanes
+    hits = np.zeros((rows, c), np.int64)
+    for blk in range(-(-rows // groups)):
+        for t in range(SUM_THREADS):
+            row, sub = blk * groups + t // lanes, t % lanes
+            for cb in range(0, c, lanes * vec):
+                c0 = cb + sub * vec
+                if row < rows and c0 < c:
+                    hits[row, c0:c0 + vec] += 1
+    assert (hits == 1).all()
+    assert 1 <= rank_max <= chunk and chunk * groups == STAGE
+    if vec == 4 and c in (128, 256, 512):
+        assert lanes * vec == c and lanes == c // 4
 
 
 def test_depth_backward_on_duplicate_faces_matches_index_add():

@@ -276,6 +276,30 @@ def test_aten_gather_is_not_hand_written():
     assert profiling.hand_written({name: [5.0, 1]}, 1) == {}
 
 
+def test_scatter_rows_order_kernels_are_hand_written_whole_words():
+    """scatter_rows' order kernels (table_gather.cu) are hand-written, each
+    counted under its own name: row_scan_kernel does not count
+    row_scan_totals_kernel's launches; the memset of the counts is a copy."""
+    names = {
+        "void (anonymous namespace)::row_count_kernel(long long const*, int*, unsigned int, int, "
+        "unsigned int)": 2,
+        "(anonymous namespace)::row_scan_kernel(int const*, int*, int*, int*, int*, int, int)": 2,
+        "(anonymous namespace)::row_scan_totals_kernel(int*, int)": 2,
+        "(anonymous namespace)::row_place_kernel(long long const*, int*, int const*, int const*, "
+        "int*, unsigned int, int, unsigned int)": 2,
+        "(anonymous namespace)::segment_sort_kernel(int*, int const*, int const*, int const*, "
+        "int const*)": 2,
+        "void (anonymous namespace)::scatter_rows_kernel<float, 4>(float const*, int const*)": 2,
+    }
+    for name in names:
+        assert profiling.kernel_class(name) == "hand-written kernels", name
+    assert profiling.kernel_class("Memset (Device)") == "casts and copies"
+    hw = profiling.hand_written({k: [3.0 * n, n] for k, n in names.items()}, 2)
+    assert hw == {k: dict(ms=0.003, count=1) for k in (
+        "row_count_kernel", "row_scan_kernel", "row_scan_totals_kernel", "row_place_kernel",
+        "segment_sort_kernel", "scatter_rows_kernel")}
+
+
 def test_idle_gaps_and_region_summary():
     gaps = profiling.idle_gaps(EVENTS, 0, 200, top=3)
     assert [(g["start"], g["ms"]) for g in gaps] == [(90, 0.06), (176, 0.024), (0, 0.02)]
