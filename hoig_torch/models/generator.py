@@ -48,6 +48,7 @@ from hoig_torch.ops.attn_fused import edge_pad, flow_attention_fused, flow_field
 from hoig_torch.ops.grid_sample import _resize_axis_linear_ac, grid_sample_nhwc
 from hoig_torch.ops.local_combine import local_combine
 from hoig_torch.ops.table_gather import gather_rows_nhwc
+from hoig_torch.utils.profiling import annotate
 
 
 def _run(module: nn.Module, remat: bool, *args):
@@ -430,9 +431,10 @@ class Generator(nn.Module):
         """Warp src feature x (NCHW) into tsf space; returns NCHW."""
         t_scale = _resize_flow(t, x.shape[2])
         if layer in self.attn_layers:
-            idt = _identity_grid_ij(x.shape[2], t_scale.dtype, t_scale.device)
-            out = _run(getattr(self, f"attn_{layer}"), self.remat_attn,
-                       _nhwc(x), _nhwc(y), t_scale - idt)
+            with annotate("attention"):
+                idt = _identity_grid_ij(x.shape[2], t_scale.dtype, t_scale.device)
+                out = _run(getattr(self, f"attn_{layer}"), self.remat_attn,
+                           _nhwc(x), _nhwc(y), t_scale - idt)
         else:
             out = grid_sample_nhwc(_nhwc(x), t_scale, align_corners=False)
         return out.permute(0, 3, 1, 2)

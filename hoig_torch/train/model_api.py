@@ -36,6 +36,7 @@ from hoig_torch.train.trainer import (
     make_eval_metrics,
     make_train_step,
 )
+from hoig_torch.utils.profiling import annotate
 from hoig_torch.utils.util import tensor2im, tensor2maskim
 
 # the reference's setup_seed(8) (train.py:153); G, D and VGG draw from
@@ -56,20 +57,22 @@ def batch_as_torch(batch: dict, device) -> dict:
 @torch.inference_mode()
 def flow_only(batch: dict, frozen: dict, ccfg: ConditioningConfig) -> dict:
     """Conditioning for one batch; frozen = dict(tables, mano_params)."""
-    return hand_recovery_flow(frozen["tables"], frozen["mano_params"], batch["imageA"],
-                              batch["imageB"], batch["manoA"], batch["manoB"], ccfg)
+    with annotate("conditioning"):
+        return hand_recovery_flow(frozen["tables"], frozen["mano_params"], batch["imageA"],
+                                  batch["imageB"], batch["manoA"], batch["manoB"], ccfg)
 
 
 @torch.inference_mode()
 def forward_only(model: torch.nn.Module, flow: dict, batch: dict, tcfg: TrainConfig):
     """Generator forward + composite: (fake_src, fake_tsf, masks...), NHWC."""
-    kwargs = generator_kwargs(
-        flow,
-        batch.get("maskA") if tcfg.use_armask else None,
-        batch.get("maskB") if tcfg.use_armask else None,
-        tcfg.use_spade,
-    )
-    return composite(model(**kwargs))
+    with annotate("generator"):
+        kwargs = generator_kwargs(
+            flow,
+            batch.get("maskA") if tcfg.use_armask else None,
+            batch.get("maskB") if tcfg.use_armask else None,
+            tcfg.use_spade,
+        )
+        return composite(model(**kwargs))
 
 
 class ModelsFactory:

@@ -27,6 +27,7 @@ from hoig_torch.geometry.conditioning import ConditioningConfig, hand_recovery_f
 from hoig_torch.models import NetworksFactory
 from hoig_torch.models.vgg import vgg_perceptual_loss
 from hoig_torch.train.losses import bce_loss, l1_loss, lsgan_loss, mse_loss, tv_smooth_loss, wmean
+from hoig_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,35 +192,38 @@ def _forward_and_g_losses(g_model, d_model, vgg_loss, tcfg: TrainConfig, flow, b
     fake_tsf, src_mbg, src_mh, tsf_mbg, tsf_mh)."""
     mask_crt = bce_loss if tcfg.mask_bce else mse_loss
     armask_src, armask_tsf = _armasks(batch, tcfg)
-    outs = g_model(**generator_kwargs(flow, armask_src, armask_tsf, tcfg.use_spade))
-    # composite and losses always in f32, whatever the conv compute dtype
-    fakes = composite(tuple(o.float() for o in outs))
+    with annotate("generator"):
+        outs = g_model(**generator_kwargs(flow, armask_src, armask_tsf, tcfg.use_spade))
+        # composite and losses always in f32, whatever the conv compute dtype
+        fakes = composite(tuple(o.float() for o in outs))
     fake_src, fake_tsf, src_mbg, src_mh, tsf_mbg, tsf_mh = fakes
 
-    real_src = _nhwc(batch["imageA"])
-    real_tsf = _nhwc(batch["imageB"])
-    d_fake = d_model(torch.cat([fake_tsf, _d_cond(flow, armask_tsf)], dim=-1))
+    with annotate("g_losses"):
+        real_src = _nhwc(batch["imageA"])
+        real_tsf = _nhwc(batch["imageB"])
+        d_fake = d_model(torch.cat([fake_tsf, _d_cond(flow, armask_tsf)], dim=-1))
 
-    loss_adv = lsgan_loss(d_fake, 0.0, w=valid) * tcfg.lambda_D_prob
-    loss_rec = l1_loss(fake_src, real_src, w=valid) * tcfg.lambda_rec
-    if tcfg.use_vgg:
-        loss_tsf = vgg_loss(fake_tsf, real_tsf, valid) * tcfg.lambda_tsf
-    else:
-        loss_tsf = l1_loss(fake_tsf, real_tsf, w=valid) * tcfg.lambda_tsf
+        loss_adv = lsgan_loss(d_fake, 0.0, w=valid) * tcfg.lambda_D_prob
+        loss_rec = l1_loss(fake_src, real_src, w=valid) * tcfg.lambda_rec
+        if tcfg.use_vgg:
+            loss_tsf = vgg_loss(fake_tsf, real_tsf, valid) * tcfg.lambda_tsf
+        else:
+            loss_tsf = l1_loss(fake_tsf, real_tsf, w=valid) * tcfg.lambda_tsf
 
-    masks_bg = torch.cat([src_mbg, tsf_mbg], dim=0)
-    masks_hand = torch.cat([src_mh, tsf_mh], dim=0)
-    tgt_bg = torch.cat([_nhwc(flow["src_crop_mask_bg"]), _nhwc(flow["tsf_crop_mask_bg"])], dim=0)
-    tgt_hand = torch.cat([_nhwc(flow["src_crop_mask_hand"]), _nhwc(flow["tsf_crop_mask_hand"])],
-                         dim=0)
-    # src / tsf mask maps are stacked along the batch: tile the weights to match
-    valid2 = None if valid is None else torch.cat([valid, valid])
-    loss_mask = (mask_crt(masks_bg, tgt_bg.detach(), w=valid2)
-                 + mask_crt(masks_hand, tgt_hand.detach(), w=valid2)) * tcfg.lambda_mask
-    loss_mask_smooth = (tv_smooth_loss(masks_bg, w=valid2)
-                        + tv_smooth_loss(masks_hand, w=valid2)) * tcfg.lambda_mask_smooth
+        masks_bg = torch.cat([src_mbg, tsf_mbg], dim=0)
+        masks_hand = torch.cat([src_mh, tsf_mh], dim=0)
+        tgt_bg = torch.cat([_nhwc(flow["src_crop_mask_bg"]), _nhwc(flow["tsf_crop_mask_bg"])],
+                           dim=0)
+        tgt_hand = torch.cat([_nhwc(flow["src_crop_mask_hand"]),
+                              _nhwc(flow["tsf_crop_mask_hand"])], dim=0)
+        # src / tsf mask maps are stacked along the batch: tile the weights to match
+        valid2 = None if valid is None else torch.cat([valid, valid])
+        loss_mask = (mask_crt(masks_bg, tgt_bg.detach(), w=valid2)
+                     + mask_crt(masks_hand, tgt_hand.detach(), w=valid2)) * tcfg.lambda_mask
+        loss_mask_smooth = (tv_smooth_loss(masks_bg, w=valid2)
+                            + tv_smooth_loss(masks_hand, w=valid2)) * tcfg.lambda_mask_smooth
 
-    total = loss_adv + loss_rec + loss_tsf + loss_mask + loss_mask_smooth
+        total = loss_adv + loss_rec + loss_tsf + loss_mask + loss_mask_smooth
     parts = {"g_adv": loss_adv, "g_rec": loss_rec, "g_tsf": loss_tsf, "g_mask": loss_mask,
              "g_mask_smooth": loss_mask_smooth}
     return fakes, total, parts, d_fake
@@ -276,30 +280,40 @@ def make_train_step(vgg_model, tables: dict, mano_params: dict, ccfg: Conditioni
             sync.zero_grad(net)
 
     def train_step(state: TrainState, batch: dict, d_trainable: bool):
+        with annotate("train_step"):
+            return _step(state, batch, d_trainable)
+
+    def _step(state: TrainState, batch: dict, d_trainable: bool):
         if sync is not None:
             # the ranks' gates come from their own clocks: a rank that skipped
             # D's backward would leave the others waiting in its all-reduce
             d_trainable = sync.agree(d_trainable)
-        flow = _conditioning(tables, mano_params, batch, ccfg)
+        with annotate("conditioning"):
+            flow = _conditioning(tables, mano_params, batch, ccfg)
         g_params = [p for p in state.g.parameters() if p.requires_grad]
         fakes, loss_g, parts, _ = _forward_and_g_losses(state.g, state.d, vgg_loss, tcfg, flow,
                                                         batch)
         zero_grad(state.opt_g, "g")
-        loss_g.backward(inputs=g_params)  # w.r.t. G only: D's .grad stays untouched
+        with annotate("g_backward"):
+            loss_g.backward(inputs=g_params)  # w.r.t. G only: D's .grad stays untouched
         if sync is not None:
             sync.reduce_grads("g")
-        state.opt_g.step()
+        with annotate("g_adam"):
+            state.opt_g.step()
 
         if d_trainable:
             d_params = [p for p in state.d.parameters() if p.requires_grad]
-            loss_d, d_aux = _d_losses(state.d, tcfg, flow, batch, fakes[1])
+            with annotate("d_losses"):
+                loss_d, d_aux = _d_losses(state.d, tcfg, flow, batch, fakes[1])
             zero_grad(state.opt_d, "d")
-            loss_d.backward(inputs=d_params)
+            with annotate("d_backward"):
+                loss_d.backward(inputs=d_params)
             if sync is not None:
                 sync.reduce_grads("d")
-            state.opt_d.step()
+            with annotate("d_adam"):
+                state.opt_d.step()
         else:
-            with torch.no_grad():
+            with torch.no_grad(), annotate("d_losses"):
                 loss_d, d_aux = _d_losses(state.d, tcfg, flow, batch, fakes[1])
         state.step += 1
         metrics = {k: v.detach() for k, v in

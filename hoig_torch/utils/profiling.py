@@ -2,20 +2,29 @@
 hoig_tpu/utils/profiling.py, which wraps jax.profiler).
 
 `trace` records CPU and, where CUDA is available, CUDA activity and writes a
-Chrome trace (viewable in Perfetto or chrome://tracing) into `log_dir`;
-`annotate` names a region in that trace and, on CUDA, as an NVTX range;
-`StepTimer` synchronises the current CUDA stream before it reads the clock,
-as the JAX package's timing blocks on the step's result; `maybe_trace_steps`
-traces a window of steps. The JAX package's utils/cache.py (XLA's compile
-cache) has no counterpart: the port compiles nothing at run time but its
-kernels, which `hoig_torch.ops._cuda` caches by source hash.
+Chrome trace (viewable in Perfetto or chrome://tracing) into `log_dir`.
+`annotate(name)` is the program's one span: off (one check, nothing
+recorded, nothing allocated) unless torch's profiler is recording; on, it
+opens `record_function("hoig/<name>")`, which the trace mirrors on the
+device timeline, and keeps a record (name, parent, step id, host start and
+end on the trace's clock, and on CUDA two timing events on the current
+stream) that `spans()` returns with the stream ms between the events.
+Under `torch.autograd.profiler.emit_nvtx()` the same ranges are NVTX
+ranges, for nsys. `StepTimer` synchronises the current CUDA stream before
+it reads the clock, as the JAX package's timing blocks on the step's
+result; `maybe_trace_steps` traces a window of steps. The JAX package's
+utils/cache.py (XLA's compile cache) has no counterpart: the port compiles
+nothing at run time but its kernels, which `hoig_torch.ops._cuda` caches by
+source hash.
 
 `profile_window` runs regions of work under ONE torch.profiler session (a
 second session in the same process lost its device events on the H100's
 machine) and splits the device time of each by kernel and operator class
 (`summarize_region`, a pure function of (name, start, end, kind) events, as
-are `kernel_class`, `hand_written` and `idle_gaps`); chip_smoke.py's
-profiler phase and scripts/profile_step_torch.py read it. `span_ms` and
+are `kernel_class`, `hand_written`, `idle_gaps`, `span_classes`, which
+splits it by the program's spans, and `kernel_owners`, which names who
+launched a kernel); chip_smoke.py's profiler phase and
+scripts/profile_step_torch.py read it. `span_ms` and
 `queued_ms` time one call by CUDA events, the second with the call queued
 behind a GPU sleep so that the host's launch gaps do not count.
 """
@@ -52,18 +61,86 @@ def trace(log_dir: str):
     prof.export_chrome_trace(_trace_path(log_dir))
 
 
-@contextlib.contextmanager
+SPAN_PREFIX = "hoig/"
+_profiler_on = torch._C._autograd._profiler_enabled
+_SPANS: list = []  # the records of the spans recorded since reset_spans()
+_OPEN: list = []  # the records of the spans open now, outermost first
+
+
+class _Off:
+    """The span when nothing records: enters and leaves doing nothing."""
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("rec", "fn")
+
+    def __init__(self, name: str):
+        self.rec = dict(name=name)
+
+    def __enter__(self):
+        rec = self.rec
+        self.fn = torch.profiler.record_function(SPAN_PREFIX + rec["name"])
+        rec["host_start_ns"] = time.time_ns()
+        self.fn.__enter__()
+        rec.update(id=len(_SPANS),
+                   parent=_OPEN[-1]["id"] if _OPEN else None,
+                   step=_OPEN[0]["id"] if _OPEN else len(_SPANS), events=None)
+        if (torch.cuda.is_available() and torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing()):
+            rec["events"] = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+            rec["events"][0].record()
+        _SPANS.append(rec)
+        _OPEN.append(rec)
+        return None
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec["events"] is not None:
+            rec["events"][1].record()
+        _OPEN.pop()
+        rec["host_end_ns"] = time.time_ns()
+        return self.fn.__exit__(*exc)
+
+
 def annotate(name: str):
-    """A named region of the trace (record_function), and an NVTX range on CUDA."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    """A span of the program named `name`: nothing unless torch's profiler
+    is recording (`torch.profiler.profile`, `emit_nvtx`); then the range
+    `hoig/<name>` in the trace and a record for `spans()`. Spans nest; they
+    are opened from one thread."""
+    return _Span(name) if _profiler_on() else _OFF
+
+
+def spans() -> list:
+    """The spans recorded since `reset_spans()`, in the order they opened:
+    dict(name, id, parent (the id of the enclosing span, None at the top),
+    step (the id of the outermost enclosing span, its own at the top),
+    host_start_ns, host_end_ns (time.time_ns(), the trace's clock),
+    stream_ms (between the span's two CUDA events, read after the caller
+    has synchronized; None where none was recorded)). A span still open has
+    no host_end_ns."""
+    out = []
+    for rec in _SPANS:
+        row = {k: v for k, v in rec.items() if k != "events"}
+        ev = rec["events"]
+        closed = ev is not None and "host_end_ns" in rec
+        row["stream_ms"] = ev[0].elapsed_time(ev[1]) if closed else None
+        out.append(row)
+    return out
+
+
+def reset_spans() -> None:
+    """Forget the recorded spans."""
+    _SPANS.clear()
 
 
 def _sync():
@@ -232,18 +309,32 @@ def idle_gaps(events, lo: float, hi: float, top: int = 10) -> list:
     return out
 
 
+def union_us(intervals) -> float:
+    """The length of the union of (start, end) intervals: kernels that
+    overlap count once."""
+    total, t = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        s = max(s, t)
+        if e > s:
+            total += e - s
+            t = e
+    return total
+
+
 def summarize_region(events, lo: float, hi: float, n: int, gaps: int = 10) -> dict | None:
     """Device time by kernel and operator class of the device events that
     start in [lo, hi] (us), per call or step of the n in that span, the
-    share of the span's wall time the device was busy, and its `gaps`
-    longest idle stretches (`idle_gaps`). None if no device event starts
-    there."""
+    share of the span's wall time the device was busy (the union of those
+    events' intervals), and its `gaps` longest idle stretches
+    (`idle_gaps`). None if no device event starts there."""
     by_name: dict = {}
+    intervals = []
     for name, s, e, kind in events:
         if kind == "device" and lo <= s <= hi:
             acc = by_name.setdefault(name, [0.0, 0])
             acc[0] += e - s
             acc[1] += 1
+            intervals.append((s, e))
     if not by_name:
         return None
     total = sum(v[0] for v in by_name.values()) / n / 1e3
@@ -255,11 +346,106 @@ def summarize_region(events, lo: float, hi: float, n: int, gaps: int = 10) -> di
         class_kernels[kernel_class(k)] = class_kernels.get(kernel_class(k), 0) + v[1]
     table = sorted(({"name": k[:90], "ms": v[0] / n / 1e3, "count": v[1] // n}
                     for k, v in by_name.items()), key=lambda r: -r["ms"])
-    return dict(device_ms=total, wall_ms=wall, busy_share=total / wall,
+    return dict(device_ms=total, wall_ms=wall, busy_share=union_us(intervals) / (hi - lo),
                 kernels_per_call=sum(v[1] for v in by_name.values()) // n, classes=classes,
                 class_kernels={k: v // n for k, v in class_kernels.items()},
                 kernels=table[:60], hand_written=hand_written(by_name, n),
                 idle_gaps=idle_gaps(events, lo, hi, gaps))
+
+
+# the host calls that put a kernel, copy or fill on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def span_classes(device, launches, ranges, n: int) -> dict:
+    """Device ms by operator class, device ops and launch calls of each
+    program span (`annotate`), per call or step of the n: {span name:
+    dict(device_ms, ops, launches, classes)}. A device event counts for a
+    span when the host call that launched it (the same correlation id)
+    started inside one of the span's host ranges, so a nested span's
+    kernels count for its parent too. device: (name, start, end,
+    correlation) of the device events; launches: (name, start, correlation,
+    thread) of the host's CUDA calls; ranges: (name, start, end) of the
+    spans' ranges, named `hoig/<span>` (times in us)."""
+    by_span: dict = {}
+    for name, s, e in ranges:
+        if name.startswith(SPAN_PREFIX):
+            by_span.setdefault(name[len(SPAN_PREFIX):], []).append((s, e))
+    launched = {c: s for name, s, c, _ in launches if name in LAUNCH_CALLS}
+    out = {}
+    for span, rs in by_span.items():
+        rs.sort()
+        starts = [r[0] for r in rs]
+
+        def inside(t):
+            i = bisect.bisect_right(starts, t) - 1
+            return i >= 0 and t <= rs[i][1]
+
+        acc = dict(device_ms=0.0, ops=0, launches=sum(inside(t) for t in launched.values()) / n,
+                   classes={})
+        for name, s, e, c in device:
+            if c in launched and inside(launched[c]):
+                label = kernel_class(name)
+                acc["classes"][label] = acc["classes"].get(label, 0.0) + (e - s) / n / 1e3
+                acc["device_ms"] += (e - s) / n / 1e3
+                acc["ops"] += 1
+        acc["ops"] /= n
+        out[span] = acc
+    return out
+
+
+def _open_at(intervals, times) -> list:
+    """For each of the sorted `times`, the names of the nested (name, start,
+    end) intervals open then, outermost first."""
+    ivs = sorted(intervals, key=lambda iv: (iv[1], -iv[2]))
+    out, stack, i = [], [], 0
+    for t in times:
+        while i < len(ivs) and ivs[i][1] <= t:
+            while stack and stack[-1][2] < ivs[i][1]:
+                stack.pop()
+            stack.append(ivs[i])
+            i += 1
+        while stack and stack[-1][2] < t:
+            stack.pop()
+        out.append([iv[0] for iv in stack])
+    return out
+
+
+def kernel_owners(device, launches, host, ranges, names, n: int, top: int = 4) -> dict:
+    """Who launched the kernels named `names`: {kernel name: dict(ms,
+    owners [[label, ms], ...] the `top` largest)}, per call or step of the
+    n. A label is "span | autograd node | aten op": the innermost program
+    span open when the launch call started (any thread), and the innermost
+    autograd node and aten op open on the launch call's thread. device:
+    (name, start, end, correlation); launches: (name, start, correlation,
+    thread); host: (name, start, end, thread) of the host ops; ranges:
+    (name, start, end) of the spans' ranges."""
+    want = set(names)
+    launched = {c: (s, th) for name, s, c, th in launches if name in LAUNCH_CALLS}
+    hits = [(launched[c], name, e - s) for name, s, e, c in device
+            if name in want and c in launched]
+    by_thread: dict = {}
+    for (t, th), name, us in hits:
+        by_thread.setdefault(th, []).append((t, name, us))
+    out = {name: dict(ms=0.0, owners={}) for name in names}
+    for th, rows in by_thread.items():
+        rows.sort()
+        times = [r[0] for r in rows]
+        ops = _open_at([(nm, s, e) for nm, s, e, t in host if t == th], times)
+        spans = _open_at(ranges, times)
+        for (_, name, us), stack, sp in zip(rows, ops, spans):
+            node = next((x.split(": ", 1)[-1] for x in reversed(stack)
+                         if x.startswith("autograd::engine::evaluate_function")), "-")
+            op = next((x for x in reversed(stack) if x.startswith("aten::")), "-")
+            label = f"{sp[-1][len(SPAN_PREFIX):] if sp else '-'} | {node} | {op}"
+            acc = out[name]
+            acc["ms"] += us / n / 1e3
+            acc["owners"][label] = acc["owners"].get(label, 0.0) + us / n / 1e3
+    for acc in out.values():
+        acc["owners"] = sorted(([k, v] for k, v in acc["owners"].items()),
+                               key=lambda kv: -kv[1])[:top]
+    return out
 
 
 def profile_window(regions: dict, out_dir=None, log=print, top: int = 10) -> dict:
@@ -269,7 +455,10 @@ def profile_window(regions: dict, out_dir=None, log=print, top: int = 10) -> dic
     busy share, its `top` kernels and its operator classes, and returns
     {region: summarize_region(...)} for the regions with device time. With
     `out_dir`, writes the profiler's table to out_dir/profile.txt (building
-    it parses the whole trace into Python objects: about 60 us an event)."""
+    it parses the whole trace into Python objects: about 60 us an event).
+    Each region's `spans` splits it by the program's spans (`span_classes`)
+    and its `owners` names who launched its `top` largest kernels
+    (`kernel_owners`)."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -287,6 +476,8 @@ def profile_window(regions: dict, out_dir=None, log=print, top: int = 10) -> dic
     t0 = min((e.start_ns() for e in kineto), default=0)
     raw = [(e.name(), (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3, e.device_type() == cuda)
            for e in kineto]
+    correlation = [e.correlation_id() for e in kineto]
+    thread = [e.start_thread_id() for e in kineto]
     spans = {name: (s, e) for name, s, e, on_dev in raw if name in regions and not on_dev}
     # annotations (these regions, Optimizer.step) are mirrored on the device
     # timeline under the host-side names: they are spans, not kernels; the
@@ -294,6 +485,12 @@ def profile_window(regions: dict, out_dir=None, log=print, top: int = 10) -> dic
     host_names = {name for name, _, _, on_dev in raw if not on_dev}
     flat = [(name, s, e, "device" if on_dev else "host") for name, s, e, on_dev in raw
             if not (on_dev and name in host_names) and name not in regions]
+    device = [(name, s, e, c) for (name, s, e, on_dev), c in zip(raw, correlation)
+              if on_dev and name not in host_names]
+    launches = [(name, s, c, th) for (name, s, e, on_dev), c, th in zip(raw, correlation, thread)
+                if not on_dev and name in LAUNCH_CALLS]
+    ranges = [(name, s, e) for name, s, e, on_dev in raw
+              if not on_dev and name.startswith(SPAN_PREFIX)]
     if out_dir is not None:
         Path(out_dir).joinpath("profile.txt").write_text(
             prof.key_averages().table(sort_by="device_time_total", row_limit=80))
@@ -308,12 +505,32 @@ def profile_window(regions: dict, out_dir=None, log=print, top: int = 10) -> dic
             continue
         total, wall = res["device_ms"], res["wall_ms"]
         log(f"  profiler {region}: device busy {total:.2f} ms of {wall:.2f} ms wall per "
-            f"{'call' if region.startswith('hoig_serve') else 'step'} ({total / wall:.0%}), "
-            f"{res['kernels_per_call']} device kernels; top kernels:")
+            f"{'call' if region.startswith('hoig_serve') else 'step'} "
+            f"({res['busy_share']:.0%} busy), {res['kernels_per_call']} device kernels; "
+            "top kernels:")
         for row in res["kernels"][:top]:
             log(f"    {row['ms']:8.3f} ms  x{row['count']:<5d} {row['name']}")
         log("    by operator class: " + "; ".join(
             f"{label} {ms:.2f} ms ({ms / total:.0%})"
             for label, ms in sorted(res["classes"].items(), key=lambda kv: -kv[1])))
+        lo, hi = spans[region]
+        dev_in, calls_in, ranges_in = ([x for x in xs if lo <= x[1] <= hi]
+                                       for xs in (device, launches, ranges))
+        res["spans"] = span_classes(dev_in, calls_in, ranges_in, n)
+        for name, sp in res["spans"].items():
+            log(f"    span {name}: {sp['device_ms']:.2f} device ms, {sp['ops']:.0f} device ops, "
+                f"{sp['launches']:.0f} launch calls; " + "; ".join(
+                    f"{label} {ms:.2f}" for label, ms in sorted(sp["classes"].items(),
+                                                               key=lambda kv: -kv[1])))
+        host = [(name, s, e, th) for (name, s, e, on_dev), th in zip(raw, thread)
+                if not on_dev and lo <= s <= hi and not name.startswith("cu")]
+        spent: dict = {}
+        for name, s, e, _ in dev_in:
+            spent[name] = spent.get(name, 0.0) + e - s
+        res["owners"] = kernel_owners(dev_in, calls_in, host, ranges_in,
+                                      sorted(spent, key=lambda k: -spent[k])[:top], n)
+        for name, o in sorted(res["owners"].items(), key=lambda kv: -kv[1]["ms"]):
+            log(f"    owners of {name[:100]} ({o['ms']:.2f} ms): " + "; ".join(
+                f"{label} {ms:.2f}" for label, ms in o["owners"]))
         out[region] = res
     return out

@@ -12,8 +12,10 @@ otherwise. After warm-up it runs --steps steps in ONE torch.profiler window
 and prints device busy ms against wall ms, device kernels per step, device
 ms by operator class and by hand-written kernel, the top 20 kernels, the
 10 longest idle gaps of the device timeline with the host ops that were
-running when each opened, the launch counters per step and the peak device
-memory; then one JSON line of the same numbers.
+running when each opened, each program span's device ms by operator class
+and its launches (`profile_window`'s span lines), who launched the 20
+largest kernels (span, autograd node, aten op), the launch counters per
+step and the peak device memory; then one JSON line of the same numbers.
 
     python scripts/profile_step_torch.py --dtype fp32 --engine gather --batch 8
     python scripts/profile_step_torch.py --dtype bf16 --engine pallas --leg fwd
@@ -43,7 +45,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 JSON_KEYS = ("tool", "leg", "dtype", "engine", "batch", "image_size", "conv_dim", "repeat_num",
              "remat", "tf32", "steps", "device", "card", "step_ms", "wall_ms", "device_busy_ms",
              "busy_share", "kernels_per_step", "classes", "hand_written", "top_kernels",
-             "idle_gaps", "launches_per_step", "peak_mem_mib")
+             "idle_gaps", "spans", "owners", "launches_per_step", "peak_mem_mib")
 
 
 def card_line() -> str | None:
@@ -201,7 +203,8 @@ def main(argv=None) -> dict:
             res.update(wall_ms=prof["wall_ms"], device_busy_ms=prof["device_ms"],
                        busy_share=prof["busy_share"], kernels_per_step=prof["kernels_per_call"],
                        classes=prof["classes"], hand_written=prof["hand_written"],
-                       top_kernels=prof["kernels"][:20], idle_gaps=prof["idle_gaps"])
+                       top_kernels=prof["kernels"][:20], idle_gaps=prof["idle_gaps"],
+                       spans=prof["spans"], owners=prof["owners"])
             print("  hand-written kernels per " + unit + ": " + "; ".join(
                 f"{k} {v['ms']:.3f} ms x{v['count']}" for k, v in prof["hand_written"].items()))
             print(f"  the {len(prof['idle_gaps'])} longest idle gaps of the device (ms, the host "

@@ -225,18 +225,25 @@ def test_learned_shortcut_matches_flax(spade):
 
 
 def test_profiling_trace_annotate_and_step_timer(tmp_path):
-    """trace writes a Chrome trace holding the annotated region;
-    maybe_trace_steps traces its window only; StepTimer counts every step
-    and leaves the first `skip_first` out of the mean, as the JAX timer."""
+    """trace writes a Chrome trace holding the annotated region (a span
+    records only while the profiler does); maybe_trace_steps traces its
+    window only; StepTimer counts every step and leaves the first
+    `skip_first` out of the mean, as the JAX timer."""
     a = torch.randn(64, 64)
+    tprof.reset_spans()
+    with tprof.annotate("region"):  # no profiler: no range, no record
+        (a @ a).sum()
+    assert tprof.spans() == []
     with tprof.trace(str(tmp_path / "t")) as prof:
-        with tprof.annotate("hoig_region"):
+        with tprof.annotate("region"):
             (a @ a).sum()
     files = os.listdir(tmp_path / "t")
     assert len(files) == 1 and files[0].endswith(".json")
     events = json.loads((tmp_path / "t" / files[0]).read_text())["traceEvents"]
-    assert any(e.get("name") == "hoig_region" for e in events)
-    assert any(e.key == "hoig_region" for e in prof.key_averages())
+    assert any(e.get("name") == "hoig/region" for e in events)
+    assert any(e.key == "hoig/region" for e in prof.key_averages())
+    assert [r["name"] for r in tprof.spans()] == ["region"]
+    tprof.reset_spans()
 
     hook = tprof.maybe_trace_steps(True, str(tmp_path / "w"), start_step=2, num_steps=2)
     off = tprof.maybe_trace_steps(False, str(tmp_path / "off"), 0, 1)

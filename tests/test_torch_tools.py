@@ -318,6 +318,51 @@ def test_idle_gaps_and_region_summary():
     assert res["kernels"][0]["name"].startswith("sm90_xmma")
     assert len(res["idle_gaps"]) == 2
     assert profiling.summarize_region(EVENTS, 180, 200, n=1) is None
+    # kernels that overlap count once in the busy share, fully in device_ms
+    overlap = [("k1", 0, 60, "device"), ("k2", 20, 40, "device"), ("k3", 50, 80, "device")]
+    res = profiling.summarize_region(overlap, 0, 100, n=1)
+    assert res["busy_share"] == pytest.approx(0.8)
+    assert res["device_ms"] == pytest.approx(0.11)
+
+
+def test_span_classes_follow_each_kernel_to_its_launch():
+    """A device op counts for every span whose host range holds the call
+    that launched it (same correlation id), the enclosing span's too."""
+    ranges = [("hoig/step", 0, 100), ("hoig/g", 10, 40), ("hoig/g", 60, 70), ("aten::mm", 12, 20)]
+    launches = [("cudaLaunchKernel", 12, 1, 0), ("cudaLaunchKernelExC", 30, 2, 0),
+                ("cudaMemsetAsync", 50, 3, 0), ("cudaLaunchKernel", 65, 4, 0),
+                ("cudaLaunchKernel", 120, 5, 0), ("cudaStreamSynchronize", 66, 6, 0)]
+    device = [("sm90_xmma_fprop_implicit_gemm", 20, 60, 1),
+              ("void combine_fwd_tc_kernel<5>(int)", 60, 64, 2), ("Memset (Device)", 64, 66, 3),
+              ("void at::native::vectorized_elementwise_kernel<4>", 70, 80, 4),
+              ("void at::native::vectorized_elementwise_kernel<4>", 130, 140, 5)]
+    got = profiling.span_classes(device, launches, ranges, n=2)
+    assert set(got) == {"step", "g"}
+    assert got["g"] == dict(device_ms=pytest.approx(0.027), ops=1.5, launches=1.5, classes={
+        "convolutions (cuDNN)": pytest.approx(0.02), "hand-written kernels": pytest.approx(0.002),
+        "elementwise": pytest.approx(0.005)})
+    assert got["step"]["ops"] == 2 and got["step"]["launches"] == 2
+    assert got["step"]["device_ms"] == pytest.approx(0.028)
+    assert got["step"]["classes"]["casts and copies"] == pytest.approx(0.001)
+
+
+def test_kernel_owners_name_span_node_and_op():
+    """Each launch of a named kernel goes to the innermost span open then
+    and to the innermost autograd node and aten op on its own thread."""
+    device = [("kA", 10, 20, 1), ("kA", 30, 35, 2), ("kB", 40, 50, 3), ("kA", 60, 70, 4)]
+    launches = [("cudaLaunchKernel", 5, 1, 7), ("cudaLaunchKernel", 6, 2, 7),
+                ("cudaLaunchKernel", 12, 3, 9), ("cudaLaunchKernelExC", 55, 4, 9)]
+    host = [("autograd::engine::evaluate_function: MulBackward0", 50, 58, 9),
+            ("aten::mul", 54, 56, 9), ("aten::add", 2, 8, 7), ("aten::copy_", 4, 5.5, 7),
+            ("aten::mm", 11, 13, 9)]
+    ranges = [("hoig/step", 0, 100), ("hoig/g", 3, 7)]
+    got = profiling.kernel_owners(device, launches, host, ranges, ["kA", "kB"], n=1)
+    assert got["kA"]["ms"] == pytest.approx(0.025)
+    assert got["kA"]["owners"] == [["g | - | aten::copy_", pytest.approx(0.01)],
+                                   ["step | MulBackward0 | aten::mul", pytest.approx(0.01)],
+                                   ["g | - | aten::add", pytest.approx(0.005)]]
+    assert got["kB"] == dict(ms=pytest.approx(0.01), owners=[["step | - | aten::mm",
+                                                              pytest.approx(0.01)]])
 
 
 # ------------------------------------------------------ (d), (e) the scripts
