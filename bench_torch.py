@@ -187,14 +187,16 @@ def leg_spec(leg: str, engine: str = "shift", image_size: int = 256, conv_dim: i
 def expected_launches(spec: dict) -> dict:
     """The kernel launches per step (per call for gen_fwd) that the FLOP walk
     expects: its attention kernels, plus the conditioning's one rasterizer
-    call and two table gathers and, in a training step, the attention's
+    call and two table gathers, the InstanceNorm kernels
+    (flops.instance_norm_launches) and, in a training step, the attention's
     edge-pad folds (flops.edge_pad_folds) and the gather engine's corner
     scatters (flops.scatter_rows_launches)."""
     from hoig_torch.utils import flops
 
     tcfg, kind = spec["tcfg"], spec["kind"]
     walk = flops.kernel_launches(tcfg, spec["batch"], kind)
-    out = dict({k: len(v) for k, v in walk.items()}, rasterizer=1, table_gather=2)
+    out = dict({k: len(v) for k, v in walk.items()}, rasterizer=1, table_gather=2,
+               **flops.instance_norm_launches(tcfg, kind))
     for name, n in (("edge_pad_fold", flops.edge_pad_folds(tcfg, kind)),
                     ("scatter_rows", flops.scatter_rows_launches(tcfg, kind))):
         if n:

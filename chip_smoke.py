@@ -28,6 +28,16 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      element-wise staging, partial slabs and a frame smaller than the TMA
      box), and the rasterizer on scenes with exact ties (duplicated faces,
      faces of one plane; one scene whose tile lists overflow);
+ 3b. the InstanceNorm kernels (hoig_torch/csrc/instance_norm.cu: the
+     statistics, the apply, the backward's sums, coefficients and dx) at
+     every (H, C, batch, dtype) of the benchmark's cells, affine and
+     parameter-free, against their plain versions on the card (y and dx of
+     bf16 inputs within one bf16 ulp plus 1e-6 of the largest entry, every
+     f32 result within 1e-6 of its largest entry), each bit-equal to itself on a second call and the kept
+     pair's apply to the first; then contiguous NCHW, odd planes, C off the
+     16-byte vector and a one-pixel plane; timed beside their bytes bound,
+     the plain version they replaced (FoldedStats and the apply) and
+     F.instance_norm, summed per step and per call of the cells;
   4. compare the card with the CPU: the conditioning at 128 px, batch 2, and
      the full-width generator in f32 (TF32 off) at 128 px, batch 1, its
      outputs and the gradient of a fixed scalar of them w.r.t. every weight;
@@ -118,11 +128,11 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      9 of combine_bwd_v_tc_kernel, one of bin_kernel and raster_kernel and
      none of the FP32 combine kernels per shift step with either remat (and
      per shift serving call: 18, 1, 1, none); the remat-defaults step runs
-     as many InstanceNorm statistics (var_mean) kernels as the remat-off
-     step (the recompute keeps them: models/layers.py keep_stats), and its
-     device kernels, the statistics' ms and the kernels that keeping them
-     saves the recompute (derived from the norms in rematerialized blocks)
-     are printed;
+     as many InstanceNorm statistics kernels (inorm_stats_kernel) as the
+     remat-off step (the recompute keeps them: models/layers.py
+     keep_stats) and 37 more apply kernels, and its device kernels, the
+     statistics' ms and the kernels that keeping them saves the recompute
+     (derived from the norms in rematerialized blocks) are printed;
   9. the drivers, after the earlier phases' models are freed, at full width
      on the synthetic dataset (256 px, batch 4, bf16, --use_spade --use_vgg
      --mask_bce, random weights): the loader alone over three batches;
@@ -314,21 +324,68 @@ FUSED_BF16 = {"attn_fused_fwd": "attn_fused_fwd_tc", "attn_fused_bwd_c": "attn_f
 # The training step's backward folds the gradient of each edge-padded tensor
 # of the attention once (edge_pad_fold): the fc_0 target half's of every
 # layer, and the shift engine's padded source.
-LAUNCHES_PER_CALL = {"local_combine_tc": 18, "rasterizer": 1, "table_gather": 2}
+# InstanceNorm (hoig_torch/ops/instance_norm.py, flops.instance_norm_launches):
+# each of G's 85 norms launches the statistics and the apply kernel; a
+# training step adds D's 4 norms on the fake in G's loss and on the real and
+# the fake in D's own step, and a backward of three kernels for each of the
+# 97 (89 when D's gate is off: D's own step then runs without gradients);
+# under remat the recompute applies the kept statistics of each norm it
+# reaches again (NORMS_KEPT: the conv blocks' 37 with the bf16 remat
+# defaults, remat_attn adding none; all 85 with full remat)
+NORMS_PER_CALL = {"inorm_stats": 85, "inorm_apply": 85}
+NORMS_PER_STEP = {"inorm_stats": 97, "inorm_apply": 97, "inorm_backward": 3 * 97}
+NORMS_KEPT = {"bf16 remat defaults": 37, "full remat": 85}
+# the validation forward (compute_losses): G, and D on the fake and the real
+NORMS_PER_EVAL_FORWARD = {"inorm_stats": 93, "inorm_apply": 93}
+NORM_BACKWARD_KERNELS = ("inorm_bwd_sums_kernel", "inorm_bwd_coef_kernel", "inorm_bwd_dx_kernel")
+# The norms of one G forward at batch B, full width, 256 px: (batch as a
+# multiple of B, C, H = W, affine, calls, of them recomputed under the bf16
+# remat defaults); the background and object branches run at 2B. Then one D
+# pass (parameter-free, batch B; three passes a step).
+NORM_G_CALLS = [(1, 64, 256, True, 6, 6), (1, 128, 128, False, 2, 2), (1, 128, 128, True, 4, 4),
+                (1, 256, 64, False, 2, 2), (1, 256, 64, True, 4, 4), (1, 512, 32, False, 14, 2),
+                (1, 512, 32, True, 12, 0), (2, 64, 256, True, 5, 5), (2, 128, 128, False, 1, 1),
+                (2, 128, 128, True, 4, 4), (2, 256, 64, False, 1, 1), (2, 256, 64, True, 4, 4),
+                (2, 512, 32, False, 7, 1), (2, 512, 32, True, 19, 1)]
+NORM_D_CALLS = [(1, 128, 64, False, 1, 0), (1, 256, 32, False, 1, 0), (1, 512, 16, False, 1, 0),
+                (1, 512, 15, False, 1, 0)]
+# the cells' batches (BENCHMARK.json: training at 32 in bf16 and f32, serving
+# at 16 in bf16)
+NORM_CELL_BATCHES = {"bfloat16": (32, 16), "float32": (32,)}
+LAUNCHES_PER_CALL = {"local_combine_tc": 18, "rasterizer": 1, "table_gather": 2,
+                     **NORMS_PER_CALL}
 LAUNCHES_PER_STEP = {"local_combine_tc": 18, "local_combine_bwd_src_tc": 18,
                      "local_combine_bwd_v_tc": 9, "rasterizer": 1, "table_gather": 2,
-                     "edge_pad_fold": 18}
+                     "edge_pad_fold": 18, **NORMS_PER_STEP}
+
+
+def with_kept(launches: dict, remat: str) -> dict:
+    """A step's launches with the recompute's applies of `remat`'s kept
+    statistics (NORMS_KEPT) added."""
+    return dict(launches, inorm_apply=launches["inorm_apply"] + NORMS_KEPT[remat])
+
+
+def gated(launches: dict) -> dict:
+    """A step's launches with D's gate off: no backward (three kernels) for
+    the norms of D's two passes in its own step."""
+    return dict(launches, inorm_backward=launches["inorm_backward"] - 3 * 2 * len(NORM_D_CALLS))
+
+
+# the shift step with the bf16 remat defaults (the drivers' under --bf16)
+LAUNCHES_PER_STEP_REMAT = with_kept(LAUNCHES_PER_STEP, "bf16 remat defaults")
 # the fused engine: one forward and one backward of each of the 9 layers
-FUSED_LAUNCHES_PER_CALL = {"attn_fused_fwd_tc": 9, "rasterizer": 1, "table_gather": 2}
+FUSED_LAUNCHES_PER_CALL = {"attn_fused_fwd_tc": 9, "rasterizer": 1, "table_gather": 2,
+                           **NORMS_PER_CALL}
 FUSED_LAUNCHES_PER_STEP = {**{k: 9 for k in FUSED_BF16.values()}, "rasterizer": 1,
-                           "table_gather": 2, "edge_pad_fold": 9}
+                           "table_gather": 2, "edge_pad_fold": 9, **NORMS_PER_STEP}
 # under remat_attn the backward recomputes each layer's forward
-FUSED_LAUNCHES_PER_STEP_REMAT = dict(FUSED_LAUNCHES_PER_STEP, attn_fused_fwd_tc=18)
+FUSED_LAUNCHES_PER_STEP_REMAT = with_kept(dict(FUSED_LAUNCHES_PER_STEP, attn_fused_fwd_tc=18),
+                                          "bf16 remat defaults")
 # the fp32 step as the drivers run it (TrainConfig(): f32, gather engine,
 # full remat): no attention kernel; each layer's 36 corners are one row
 # gather, whose backward is one scatter_rows launch
-FP32_LAUNCHES_PER_STEP = {"rasterizer": 1, "table_gather": 2, "edge_pad_fold": 9,
-                          "scatter_rows": 9}
+FP32_LAUNCHES_PER_STEP = with_kept({"rasterizer": 1, "table_gather": 2, "edge_pad_fold": 9,
+                                    "scatter_rows": 9, **NORMS_PER_STEP}, "full remat")
 IMAGE, BATCH = 256, 4
 # the reference's own training batch (scripts/train_hov3_ddp.sh: 8 a card)
 FP32_BATCH = 8
@@ -344,6 +401,9 @@ FP32_BATCH = 8
 TOL_F32 = 1e-5
 TOL_BF16 = 2.0 ** -7
 TOL_RESID = 1e-4
+# InstanceNorm's kernels against their plain versions: each f32 result within
+# 1e-6 of its largest entry (the sums in another order)
+TOL_NORM = 1e-6
 
 
 def log(*a):
@@ -1150,6 +1210,196 @@ def check_scatter_ragged() -> dict:
                 clamped_layer_longest_segment=longest)
 
 
+def _bf16_adjacent(got, ref, floor: float) -> bool:
+    """bf16 values within one ulp of each other (adjacent representable
+    values: the ulp of the larger magnitude), plus `floor` (an f32
+    difference that moves a value near zero)."""
+    import torch
+
+    big = torch.maximum(got.float().abs(), ref.float().abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return bool(((got.float() - ref.float()).abs() <= ulp + floor).all())
+
+
+def check_instance_norm() -> dict:
+    """Phase 3b: the InstanceNorm kernels (hoig_torch/ops/instance_norm.py)
+    against their plain versions on the card at every (H, C, batch, dtype)
+    of the cells (NORM_G_CALLS, NORM_D_CALLS, NORM_CELL_BATCHES), channels_last,
+    affine and parameter-free: y and dx of bf16 inputs within one bf16 ulp
+    (plus TOL_NORM of the largest entry, where an f32 difference of the
+    terms moves a value near zero), every f32 result (f32 y and dx, the
+    statistics, dweight, dbias) within TOL_NORM of its largest entry (y:
+    of its largest term, x a or b, which cancel on a one-pixel plane); every kernel bit-equal to itself on a
+    second call, and the kept pair's apply bit-equal to the first. Then
+    contiguous NCHW and odd shapes, and the times per step of a training
+    cell and per call of the serving cell: kernels, their bytes bound, the
+    plain version (FoldedStats and the apply that they replaced) and
+    F.instance_norm (the library yardstick; no recompute)."""
+    import torch
+    import torch.nn.functional as F_
+
+    from hoig_torch.ops import _cuda
+    from hoig_torch.ops import instance_norm as IN
+    from hoig_torch.utils.flops import PEAK_BYTES_PER_S
+
+    check(sum(r[4] for r in NORM_G_CALLS) == NORMS_PER_CALL["inorm_stats"]
+          and sum(r[5] for r in NORM_G_CALLS) == NORMS_KEPT["bf16 remat defaults"]
+          and 3 * len(NORM_D_CALLS) == NORMS_PER_STEP["inorm_stats"] - NORMS_PER_CALL["inorm_stats"],
+          "NORM_G_CALLS / NORM_D_CALLS disagree with the launch constants")
+    t_phase = time.perf_counter()
+    worst: dict = {}
+    times: dict = {}
+    failures: list = []
+
+    def run(x, dy, w, b):
+        _cuda.reset_launch_counts()
+        y, st = IN.norm_forward(x, w, b, 1e-5)
+        dx, gw, gb = IN.norm_backward(x, dy, w, st[0], st[2], st[3])
+        yk = IN.norm_apply(x, st[0], st[1])
+        torch.cuda.synchronize()
+        check(_cuda.launch_counts() == {"inorm_stats": 1, "inorm_apply": 2, "inorm_backward": 3},
+              f"InstanceNorm launches {_cuda.launch_counts()}")
+        return y, st, dx, gw, gb, yk
+
+    def hold(x, dy, w, b, label):
+        y, st, dx, gw, gb, yk = run(x, dy, w, b)
+        again = run(x, dy, w, b)
+        same = all(p is None and q is None or torch.equal(p, q)
+                   for p, q in zip((y, st, dx, gw, gb), again[:5]))
+        check(same and torch.equal(yk, y), f"InstanceNorm {label}: not bit-equal to itself")
+        ref = IN.norm_stats_reference(x, w, b, 1e-5)
+        yr = IN.norm_apply_reference(x, ref[0], ref[1])
+        dxr, gwr, gbr = IN.norm_backward_reference(x, dy, w, st[0], st[2], st[3])
+        f32 = dict(a=(st[0], ref[0]), b=(st[1], ref[1]), mean=(st[2], ref[2]),
+                   rstd=(st[3], ref[3]))
+        if w is not None:
+            f32.update(dweight=(gw, gwr), dbias=(gb, gbr))
+        # y's scale is its terms' (x a and b), which cancel where a plane's
+        # variance is tiny against its mean (a one-pixel plane: y = bias)
+        scale = dict(y=float(x.float().abs().amax(dim=(2, 3)).mul(ref[0].abs()).max()
+                               + ref[1].abs().max()))
+        if x.dtype == torch.float32:
+            f32.update(y=(y, yr), dx=(dx, dxr))
+        else:
+            for k, got, want in (("y", y, yr), ("dx", dx, dxr)):
+                top = scale.get(k, float(want.float().abs().max()))
+                if not _bf16_adjacent(got, want, TOL_NORM * top):
+                    failures.append(f"{label}: bf16 {k} beyond one ulp")
+        for k, (got, want) in f32.items():
+            rel = max_err(got, want) / max(scale.get(k, float(want.abs().max())), 1e-30)
+            if rel > TOL_NORM:
+                failures.append(f"{label}: {k} {rel:.3g} of its largest entry")
+            worst[k] = max(worst.get(k, 0.0), rel)
+
+    def inputs(b, c, h, dt, fmt=torch.channels_last, w_=None):
+        g = torch.Generator(device="cuda").manual_seed(b * 1000 + c + h)
+        w_ = w_ or h
+        x = (2 * torch.randn(b, c, h, w_, device="cuda", generator=g) + 1).to(dt)
+        dy = torch.randn(b, c, h, w_, device="cuda", generator=g).to(dt)
+        return (x.contiguous(memory_format=fmt), dy.contiguous(memory_format=fmt),
+                torch.rand(c, device="cuda", generator=g) + 0.5,
+                torch.randn(c, device="cuda", generator=g))
+
+    for dtype, batches in NORM_CELL_BATCHES.items():
+        dt = getattr(torch, dtype)
+        shapes = {(m * bb, c, h) for bb in batches for m, c, h, *_ in NORM_G_CALLS}
+        shapes |= {(batches[0], c, h) for _, c, h, *_ in NORM_D_CALLS}
+        for b, c, h in sorted(shapes):
+            x, dy, w, bias = inputs(b, c, h, dt)
+            for affine in (True, False):
+                hold(x, dy, *((w, bias) if affine else (None, None)),
+                     f"{dtype} B {b} C {c} {h}x{h} {'affine' if affine else 'parameter-free'}")
+            wt = (w, bias)
+            _, st = IN.norm_forward(x, *wt, 1e-5)
+            xg = x.detach().requires_grad_()
+            wg, bg = w.detach().requires_grad_(), bias.detach().requires_grad_()
+
+            def plain_fwd():
+                a, o = IN.FoldedStats.apply(x, w, bias, 1e-5, None)
+                return x * a.to(dt) + o.to(dt)
+
+            def plain_both():
+                a, o = IN.FoldedStats.apply(xg, wg, bg, 1e-5, None)
+                return torch.autograd.grad(xg * a.to(dt) + o.to(dt), (xg, wg, bg), dy)
+
+            def lib_both():
+                return torch.autograd.grad(F_.instance_norm(xg, weight=wg, bias=bg, eps=1e-5),
+                                           (xg, wg, bg), dy)
+
+            a4, o4 = st[0][:, :, None, None].to(dt), st[1][:, :, None, None].to(dt)
+            nbytes = x.numel() * x.element_size()
+            row = dict(
+                fwd=device_ms(lambda: IN.norm_forward(x, *wt, 1e-5)),
+                apply=device_ms(lambda: IN.norm_apply(x, st[0], st[1])),
+                bwd=device_ms(lambda: IN.norm_backward(x, dy, w, st[0], st[2], st[3])),
+                plain_fwd=device_ms(plain_fwd, reps=5, behind_sleep=False),
+                plain_apply=device_ms(lambda: x * a4 + o4, reps=5, behind_sleep=False),
+                plain_both=device_ms(plain_both, reps=5, behind_sleep=False),
+                lib_fwd=device_ms(lambda: F_.instance_norm(x, weight=w, bias=bias, eps=1e-5),
+                                  reps=5, behind_sleep=False),
+                lib_both=device_ms(lib_both, reps=5, behind_sleep=False),
+                bound_fwd=3 * nbytes / PEAK_BYTES_PER_S * 1e3,
+                bound_apply=2 * nbytes / PEAK_BYTES_PER_S * 1e3,
+                bound_bwd=5 * nbytes / PEAK_BYTES_PER_S * 1e3)
+            row["plain_bwd"] = row["plain_both"] - row["plain_fwd"]
+            row["lib_bwd"] = row["lib_both"] - row["lib_fwd"]
+            times[(dtype, b, c, h)] = row
+            del x, dy, xg, st
+            torch.cuda.empty_cache()
+    # contiguous NCHW, odd planes, C off the 16-byte vector, one pixel
+    for dtype in NORM_CELL_BATCHES:
+        dt = getattr(torch, dtype)
+        for b, c, h, w_, fmt in ((3, 64, 15, 15, torch.contiguous_format),
+                                 (2, 128, 33, 31, torch.contiguous_format),
+                                 (2, 70, 9, 13, torch.channels_last),
+                                 (5, 67, 16, 16, torch.contiguous_format),
+                                 (4, 256, 1, 1, torch.channels_last)):
+            x, dy, w, bias = inputs(b, c, h, dt, fmt, w_)
+            for affine in (True, False):
+                hold(x, dy, *((w, bias) if affine else (None, None)),
+                     f"{dtype} B {b} C {c} {h}x{w_} {fmt} {'affine' if affine else 'free'}")
+
+    check(not failures, f"InstanceNorm kernels against their plain versions ({len(failures)} "
+          f"cases): " + "; ".join(failures[:40]))
+
+    def per_step(dtype, b, train):
+        """Device ms a step (train) or a call of the norms at batch b."""
+        tot = dict.fromkeys(("kernels", "bound", "plain", "library"), 0.0)
+        # (batch, C, H, calls, recomputed): the bf16 cells keep the conv
+        # blocks' statistics, the f32 cell (full remat) all of G's
+        calls = [(m * b, c, h, n, k if dtype == "bfloat16" else n)
+                 for m, c, h, _, n, k in NORM_G_CALLS]
+        if train:
+            calls += [(b, c, h, 3, 0) for _, c, h, *_ in NORM_D_CALLS]
+        for bb, c, h, n, kept in calls:
+            r = times[(dtype, bb, c, h)]
+            for key, k in zip(tot, ("fwd", "bound_fwd", "plain_fwd", "lib_fwd")):
+                tot[key] += n * r[k]
+            if train:
+                for key, k in zip(tot, ("bwd", "bound_bwd", "plain_bwd", "lib_bwd")):
+                    tot[key] += n * r[k]
+                # the recompute's apply (F.instance_norm keeps no statistics: left out)
+                for key, k in zip(tot, ("apply", "bound_apply", "plain_apply")):
+                    tot[key] += kept * r[k]
+        return tot
+
+    out = dict(worst_rel=worst, tol=TOL_NORM, times={"|".join(map(str, k)): v
+                                                     for k, v in times.items()},
+               step_bf16_b32=per_step("bfloat16", NORM_CELL_BATCHES["bfloat16"][0], True),
+               call_bf16_b16=per_step("bfloat16", NORM_CELL_BATCHES["bfloat16"][1], False),
+               step_fp32_b32=per_step("float32", NORM_CELL_BATCHES["float32"][0], True),
+               seconds=time.perf_counter() - t_phase)
+    log(f"  InstanceNorm kernels held at {len(times)} cell shapes (bf16 one ulp; f32 results "
+        f"within {TOL_NORM} of their largest entry; worst "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())) + "), bit-equal to "
+        f"themselves; {out['seconds']:.1f} s")
+    for key in ("step_bf16_b32", "call_bf16_b16", "step_fp32_b32"):
+        t = out[key]
+        log(f"  InstanceNorm {key}: kernels {t['kernels']:.2f} ms, bound {t['bound']:.2f}, plain "
+            f"{t['plain']:.2f}, F.instance_norm {t['library']:.2f} (device ms)")
+    return out
+
+
 def check_ragged_shapes() -> None:
     """Each kernel against its plain version on small shapes its wrapper
     takes but the main path does not give it: partial pixel tiles and
@@ -1581,7 +1831,8 @@ def determinism_probe(env, ccfg, batch, out_dir: Path) -> dict:
               "it would be blind")
     configs = {
         "shift, bf16 remat defaults": (train_config("shift", remat=True, remat_bottleneck=False,
-                                                    remat_attn=False), batch, LAUNCHES_PER_STEP),
+                                                    remat_attn=False), batch,
+                                       LAUNCHES_PER_STEP_REMAT),
         "fused, remat off": (train_config("pallas", remat=False), batch, FUSED_LAUNCHES_PER_STEP),
         "fused, remat + remat_attn": (train_config("pallas", remat=True, remat_bottleneck=False,
                                                    remat_attn=True), batch,
@@ -1634,7 +1885,7 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
     d_before = _snapshot(dict(state.d.named_parameters()))
     o_before = _snapshot(_opt_tensors(state.opt_d))
     g_before = _snapshot(dict(list(state.g.named_parameters())[:1]))
-    m_gated = counted_step(state, step, batch, False, LAUNCHES_PER_STEP)
+    m_gated = counted_step(state, step, batch, False, gated(LAUNCHES_PER_STEP))
     check(all(torch.equal(v, d_before[k]) for k, v in state.d.named_parameters()),
           "the gated step moved D's weights")
     o_after = _opt_tensors(state.opt_d)
@@ -1656,10 +1907,10 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
         "with the bf16 remat defaults")
     rstate, rstep = build_step(env, ccfg, config(remat=True, remat_bottleneck=False,
                                                  remat_attn=False))
-    counted_step(rstate, rstep, batch, True, LAUNCHES_PER_STEP)  # warm-up
+    counted_step(rstate, rstep, batch, True, LAUNCHES_PER_STEP_REMAT)  # warm-up
     regions = dict(regions, **more_regions(), hoig_train=(
         lambda: counted_step(state, step, batch, True, LAUNCHES_PER_STEP), 1), hoig_train_remat=(
-        lambda: counted_step(rstate, rstep, batch, True, LAUNCHES_PER_STEP), 1))
+        lambda: counted_step(rstate, rstep, batch, True, LAUNCHES_PER_STEP_REMAT), 1))
     profile = profile_window(regions, out_dir, log=log)
     del regions, state, step
     torch.cuda.empty_cache()
@@ -1667,7 +1918,7 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
     train["remat"] = remat_profile(profile, rstate.g)
 
     # the remat defaults' memory peak and step time
-    ms, peak = timed_steps(rstate, rstep, batch, LAUNCHES_PER_STEP, warm=2, n=4)
+    ms, peak = timed_steps(rstate, rstep, batch, LAUNCHES_PER_STEP_REMAT, warm=2, n=4)
     train["remat"].update(step_ms=statistics.median(ms), peak_mem_mb=peak, step_ms_all=ms)
     log(f"  remat (conv blocks; bottleneck and attention kept): step "
         f"{train['remat']['step_ms']:.2f} ms (median of {len(ms)}), peak {peak:.0f} MiB")
@@ -1680,8 +1931,8 @@ def training_phase(env, ccfg, batch, regions: dict, more_regions, out_dir: Path
     log("  (b) the first step twice with the bf16 remat defaults, (c) once with remat off: "
         "bit for bit")
     remat_cfg = config(remat=True, remat_bottleneck=False, remat_attn=False)
-    first = fresh_step(env, ccfg, batch, remat_cfg, LAUNCHES_PER_STEP)
-    n = bit_equal(fresh_step(env, ccfg, batch, remat_cfg, LAUNCHES_PER_STEP), first,
+    first = fresh_step(env, ccfg, batch, remat_cfg, LAUNCHES_PER_STEP_REMAT)
+    n = bit_equal(fresh_step(env, ccfg, batch, remat_cfg, LAUNCHES_PER_STEP_REMAT), first,
                   "(b) two shift steps with the remat defaults")
     bit_equal(fresh_step(env, ccfg, batch, config(remat=False), LAUNCHES_PER_STEP), first,
               "(c) the shift step with remat off against the remat defaults")
@@ -1741,7 +1992,8 @@ def fp32_phase(env, ccfg) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     bit_equal(fresh_step(env, ccfg, batch, dataclasses.replace(tcfg, remat=False),
-                         FP32_LAUNCHES_PER_STEP), first,
+                         dict(FP32_LAUNCHES_PER_STEP, inorm_apply=NORMS_PER_STEP["inorm_apply"])),
+              first,
               "(e) the fp32 step with remat off against full remat")
     peak_off = torch.cuda.max_memory_allocated() / 2**20
     out = dict(launches=launches, metrics=metrics, bit_equal_tensors=n,
@@ -1759,9 +2011,8 @@ def fp32_phase(env, ccfg) -> tuple[dict, dict]:
 def remat_norms(g) -> dict:
     """InstanceNorms of generator g in rematerialized regions (`_run` with
     remat on; the attention has none), by kind, and the device kernels that
-    keeping their statistics saves each recompute: under bf16 the f32 cast,
-    var_mean, + eps, rsqrt, the negated mean, its product, and with a weight
-    the scale's two products and the bias (9; 6 without)."""
+    keeping their statistics saves each recompute: the statistics kernel
+    (inorm_stats_kernel) of each."""
     import torch
 
     from hoig_torch.models.layers import InstanceNorm, ResidualBlock
@@ -1776,26 +2027,29 @@ def remat_norms(g) -> dict:
             regions += [net.encoders, net.decoders, net.skippers]
             regions += [net.resnets] if net.remat_mid else []
         regions += [m for m in bg.model if bg.remat_mid or not isinstance(m, ResidualBlock)]
-    cast = int(bg.model[0].compute_dtype == torch.bfloat16)
     affine, plain = norms(regions, True), norms(regions, False)
-    return dict(affine=affine, parameter_free=plain,
-                kernels=affine * (8 + cast) + plain * (5 + cast))
+    return dict(affine=affine, parameter_free=plain, kernels=affine + plain)
 
 
 def remat_profile(profile: dict, g) -> dict:
     """Phase 8's remat-defaults step against the remat-off step: device
     kernels, and the InstanceNorm statistics' kernels and ms per step. The
     recompute reduces nothing (models/layers.py keep_stats): both steps run
-    as many var_mean kernels."""
-    label = "InstanceNorm statistics (var_mean)"
+    as many statistics kernels (inorm_stats_kernel), the remat step the
+    apply kernel once more for each kept pair."""
     derived = remat_norms(g)
     off, on = profile.get("hoig_train"), profile.get("hoig_train_remat")
     out = dict(norms_in_remat_regions=derived)
     if off is None or on is None:
         log("  profiler: the remat-defaults step against remat off not measured")
         return out
-    stats = {k: (r["class_kernels"].get(label, 0), r["classes"].get(label, 0.0))
-             for k, r in (("off", off), ("on", on))}
+
+    def launched(r, kernel):
+        hit = (r.get("hand_written") or {}).get(kernel, {})
+        return hit.get("count", 0), hit.get("ms", 0.0)
+
+    stats = {k: launched(r, "inorm_stats_kernel") for k, r in (("off", off), ("on", on))}
+    applies = {k: launched(r, "inorm_apply_kernel")[0] for k, r in (("off", off), ("on", on))}
     out.update(kernels_per_step=on["kernels_per_call"], device_ms=on["device_ms"],
                remat_off_kernels_per_step=off["kernels_per_call"],
                in_stats_kernels=stats["on"][0], in_stats_ms=stats["on"][1],
@@ -1806,8 +2060,11 @@ def remat_profile(profile: dict, g) -> dict:
         f"{stats['on'][1]:.3f} ms / remat off {stats['off'][0]} kernels {stats['off'][1]:.3f} ms; "
         f"{derived['affine']} + {derived['parameter_free']} norms in remat regions, whose kept "
         f"statistics save the recompute {derived['kernels']} kernels")
-    check(stats["on"][0] == stats["off"][0], "the remat recompute reduced InstanceNorm "
-          f"statistics again: {stats['on'][0]} var_mean kernels against {stats['off'][0]}")
+    check(stats["on"][0] == stats["off"][0] == NORMS_PER_STEP["inorm_stats"],
+          "the remat recompute reduced InstanceNorm statistics again: "
+          f"{stats['on'][0]} statistics kernels against {stats['off'][0]}")
+    check(applies["on"] - applies["off"] == NORMS_KEPT["bf16 remat defaults"],
+          f"the remat step applies {applies['on']} InstanceNorms against {applies['off']}")
     return out
 
 
@@ -2483,10 +2740,11 @@ def driver_phase(out_dir: Path, serve: dict, train: dict) -> dict:
         out["train_peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2**20
         check(len(probe.steps) == 3, f"{len(probe.steps)} train steps, not 3")
         for i, (_, launches) in enumerate(probe.steps):
-            check(launches == LAUNCHES_PER_STEP,
-                  f"driver step {i + 1} launches {launches} != {LAUNCHES_PER_STEP}")
+            check(launches == LAUNCHES_PER_STEP_REMAT,
+                  f"driver step {i + 1} launches {launches} != {LAUNCHES_PER_STEP_REMAT}")
         for losses, _, launches in probe.forwards:
-            check(launches == LAUNCHES_PER_CALL, f"driver forward launches {launches}")
+            want = dict(LAUNCHES_PER_CALL, **NORMS_PER_EVAL_FORWARD) if losses else LAUNCHES_PER_CALL
+            check(launches == want, f"driver forward launches {launches} != {want}")
         flags = [losses for losses, _, _ in probe.forwards]
         check(flags == [False, True], f"forwards in training (compute_losses) {flags}: the first "
               "display must run the visuals forward and one validation forward")
@@ -3439,6 +3697,13 @@ def tools_phase(env, out_dir: Path, serve: dict, train: dict) -> dict:
     torch.cuda.empty_cache()
     cond = {"rasterizer": 1, "table_gather": 2}
     b2b3 = {"bin_kernel": 1, "raster_kernel": 1, "gather_kernel": 2}
+    # the InstanceNorm kernels: the statistics and the apply forward (the
+    # apply also in the recompute), three kernels a backward
+    fp32_norms = {"inorm_stats_kernel": NORMS_PER_STEP["inorm_stats"],
+                  "inorm_apply_kernel": FP32_LAUNCHES_PER_STEP["inorm_apply"],
+                  **{k: NORMS_PER_STEP["inorm_backward"] // 3 for k in NORM_BACKWARD_KERNELS}}
+    serve_norms = {"inorm_stats_kernel": NORMS_PER_CALL["inorm_stats"],
+                   "inorm_apply_kernel": NORMS_PER_CALL["inorm_apply"]}
     # B4-fwd's product adds its split-K partials in a second launch where it splits
     split = sum(_tc_splits(BATCH, h + 2 * HALO, h + 2 * HALO, F) > 1
                 for h, _ in flops.attn_layers(IMAGE, 64, 6))
@@ -3446,12 +3711,14 @@ def tools_phase(env, out_dir: Path, serve: dict, train: dict) -> dict:
         "fp32_b8_gather_train": _profile_leg(
             "fp32_b8_gather_train", ["--dtype", "fp32", "--engine", "gather", "--batch", "8",
                                      "--steps", "2", "--warmup", "1"], out_dir,
-            FP32_LAUNCHES_PER_STEP, dict(b2b3, fold_kernel=9, **{k: 9 for k in SCATTER_FUNCTIONS})),
+            FP32_LAUNCHES_PER_STEP, dict(b2b3, fold_kernel=9, **{k: 9 for k in SCATTER_FUNCTIONS},
+                                         **fp32_norms)),
         "bf16_b4_fused_serve": _profile_leg(
             "bf16_b4_fused_serve", ["--dtype", "bf16", "--engine", "pallas", "--leg", "fwd",
                                     "--batch", str(BATCH), "--steps", "2", "--warmup", "2"],
-            out_dir, dict(cond, attn_fused_fwd_tc=9),
-            dict(b2b3, conv5_tc_kernel=9, fwd_pixel_kernel=9, slice_sum_kernel=split))})
+            out_dir, dict(cond, attn_fused_fwd_tc=9, **NORMS_PER_CALL),
+            dict(b2b3, conv5_tc_kernel=9, fwd_pixel_kernel=9, slice_sum_kernel=split,
+                 **serve_norms))})
 
     rows = attn_ab_torch.run(BATCH, "bf16", ("shift", "gather", "pallas"), 3, "cuda", IMAGE, 64)
     log("  attn_ab_torch (3 iterations; device ms queued behind a GPU sleep, * the stream's span "
@@ -3824,8 +4091,8 @@ def real_data_phase(out_dir: Path, drivers: dict, dev: str = "cuda") -> dict:
               f"hov3 train_torch: non-finite errors {train['errors']}")
         if dev == "cuda":
             for i, (_, launches) in enumerate(train["steps"]):
-                check(launches == LAUNCHES_PER_STEP,
-                      f"hov3 step {i + 1} launches {launches} != {LAUNCHES_PER_STEP}")
+                check(launches == LAUNCHES_PER_STEP_REMAT,
+                      f"hov3 step {i + 1} launches {launches} != {LAUNCHES_PER_STEP_REMAT}")
         # the textured object's table: the fixture texture resized to IMAGE
         # as cv2 does, the plain one zeros
         tex = resize_linear_u8(imread(FIXTURES / "texture_map.png")[:, :, ::-1], (IMAGE, IMAGE))
@@ -3886,8 +4153,9 @@ def real_data_phase(out_dir: Path, drivers: dict, dev: str = "cuda") -> dict:
 BENCH_TIMEOUT_S = 600
 # launches per step or call of each leg at the main path's counts (phases 5,
 # 6e, 7 and 7e); the fp32 leg's gather engine launches no attention kernel
-BENCH_LAUNCHES = {"train_bf16": LAUNCHES_PER_STEP, "gen_fwd": LAUNCHES_PER_CALL,
-                  "train_bf16_b8": LAUNCHES_PER_STEP, "train_bf16_dexycb": LAUNCHES_PER_STEP,
+BENCH_LAUNCHES = {"train_bf16": LAUNCHES_PER_STEP_REMAT, "gen_fwd": LAUNCHES_PER_CALL,
+                  "train_bf16_b8": LAUNCHES_PER_STEP_REMAT,
+                  "train_bf16_dexycb": LAUNCHES_PER_STEP_REMAT,
                   "train_fp32": FP32_LAUNCHES_PER_STEP}
 
 
@@ -4003,7 +4271,8 @@ def bench_phase(out_dir: Path, serve: dict, train: dict, fused: dict) -> dict:
     check(ab_d["corner_engine"] == "pallas", f"fused headline: engine {ab_d['corner_engine']}")
     check(not (ab_dir / "BENCH_DETAILS.json").exists(),
           "a headline-only run wrote BENCH_DETAILS.json")
-    fused_row = _bench_leg("train_bf16", ab_d, "pallas", FUSED_LAUNCHES_PER_STEP)
+    fused_row = _bench_leg("train_bf16", ab_d, "pallas",
+                           with_kept(FUSED_LAUNCHES_PER_STEP, "bf16 remat defaults"))
     log(f"  fused headline ({ab['wall_s']:.1f} s): {ab['headline']}; step {fused_row['ms']:.2f} ms "
         f"(bf16 remat defaults) beside phase 6e's fused step with remat off "
         f"{fused['training']['step_ms']:.2f} (information)")
@@ -4095,7 +4364,8 @@ def main() -> int:
     log(f"  main path launches: {launches}")
     check(launches == LAUNCHES_PER_CALL, f"main path launches {launches} != {LAUNCHES_PER_CALL}")
     for name, n in LAUNCHES_PER_CALL.items():
-        check(len(rec.calls[name]) == n, f"{name}: {len(rec.calls[name])} calls recorded")
+        if name in rec.calls:
+            check(len(rec.calls[name]) == n, f"{name}: {len(rec.calls[name])} calls recorded")
     check(all(torch.isfinite(o).all() for o in outs), "non-finite serving outputs")
     results = {
         "local_combine_tc": check_local_combine(rec.calls["local_combine_tc"]),
@@ -4105,6 +4375,8 @@ def main() -> int:
     del rec
     results["rasterizer"]["ties"] = check_rasterizer_ties()
     check_ragged_shapes()
+    log("[3b] InstanceNorm kernels against their plain versions at the cells' shapes")
+    norms = check_instance_norm()
 
     # 4. card against CPU
     log("[4] card vs CPU")
@@ -4231,7 +4503,8 @@ def main() -> int:
                 name, 0)
         kernels.append(row)
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-                  kernels=results, cpu_compare=cpu_cmp, serving=serve, training=train,
+                  kernels=results, instance_norm=norms, cpu_compare=cpu_cmp, serving=serve,
+                  training=train,
                   fp32=fp32, fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics,
                   offpath=offpath, tools=tools, real_data=real_data, bench=bench)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
@@ -4245,6 +4518,8 @@ def main() -> int:
                                                     "sanity_b4_vs_b8", "fused_headline",
                                                     "seconds")}, "card": card}, default=str))
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"instance_norm": {k: norms[k] for k in (
+        "worst_rel", "step_bf16_b32", "call_bf16_b16", "step_fp32_b32", "seconds")}}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -7,27 +7,34 @@ compute dtype does: parameters stay f32 and are cast per call, InstanceNorm
 statistics are taken in f32. Module and parameter names follow the
 reference's torch modules, so `state_dict()` keys are the reference's.
 
-InstanceNorm statistics under remat (the JAX package's checkpoint policy
+InstanceNorm is `hoig_torch.ops.instance_norm`: the plain PyTorch version
+(`FoldedStats` and the apply) on the CPU, the hand-written kernels on the
+card. Its statistics under remat (the JAX package's checkpoint policy
 `save_only_these_names("in_stats")`): a region that the generator
 rematerializes runs inside `keep_stats`, whose stash records each
 InstanceNorm's folded f32 scale and offset on the region's first call and
 hands them back, in call order, to the recompute in the backward pass. The
 recompute then runs no statistics reduction; the gradient still flows
-through the statistics (`FoldedStats`'s hand-written backward, which the
-original forward's autograd node runs). The stash belongs to the region's
+through the statistics (the hand-written backward that the original
+forward's autograd node runs). The stash belongs to the region's
 checkpoint and dies with its autograd graph.
 """
 
 from __future__ import annotations
 
-import collections
 import threading
 import weakref
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
+
+# stats_counts and reset_stats_counts stay importable from here (the tests, chip_smoke.py)
+from hoig_torch.ops.instance_norm import (  # noqa: F401
+    instance_norm,
+    reset_stats_counts,
+    stats_counts,
+)
 
 
 class Conv2d(nn.Conv2d):
@@ -58,70 +65,6 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         cd = self.compute_dtype
         return F.conv_transpose2d(x.to(cd), self.weight.to(cd), None, self.stride, self.padding,
                                   self.output_padding)
-
-
-# statistics reductions run ("computed") and pairs handed to a recompute
-# ("kept"), since the last reset: the tests and chip_smoke.py read them
-_STATS = collections.Counter()
-
-
-def stats_counts() -> dict:
-    return dict(_STATS)
-
-
-def reset_stats_counts() -> None:
-    _STATS.clear()
-
-
-class FoldedStats(torch.autograd.Function):
-    """InstanceNorm's folded f32 statistics of x (B, C, H, W): a = rstd *
-    weight, b = bias - mean * a (weight and bias None: a = rstd, b = -mean *
-    rstd), each (B, C, 1, 1), with rstd = (var + eps)^-1/2 over H, W.
-
-    With `kept` (a pair that an earlier call computed on the same values)
-    it returns that pair and reduces nothing. Either way it saves x and the
-    weight for the backward, so that a checkpoint's recompute saves what
-    the original forward saved; mean and rstd stay on the original call's
-    node, out of the checkpoint's reach."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps: float, kept):
-        if kept is None:
-            var, mean = torch.var_mean(x.float(), dim=(2, 3), correction=0, keepdim=True)
-            rstd = torch.rsqrt(var + eps)
-            a, b = rstd, -mean * rstd
-            if weight is not None:
-                scale = weight[None, :, None, None]
-                a = a * scale
-                b = b * scale + bias[None, :, None, None]
-            # detached: rstd itself is the output a when there is no weight
-            ctx.mean, ctx.rstd = mean, rstd.detach()
-            _STATS["computed"] += 1
-        else:
-            a, b = (t.detach() for t in kept)
-            _STATS["kept"] += 1
-        ctx.save_for_backward(x, weight)
-        return a, b
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ga, gb):
-        x, weight = ctx.saved_tensors
-        mean, rstd = ctx.mean, ctx.rstd
-        # the gradient of rstd, through a0 = rstd and b0 = -mean * rstd
-        g_rstd = ga - gb * mean
-        g_weight = g_bias = None
-        if weight is not None:
-            g_weight = (g_rstd * rstd).sum(dim=(0, 2, 3))
-            g_bias = gb.sum(dim=(0, 2, 3))
-            scale = weight[None, :, None, None]
-            g_rstd, gb = g_rstd * scale, gb * scale
-        # then to x: d rstd / d var = -rstd^3 / 2, d var / dx = 2 (x - mean) / n
-        # and d mean / dx = 1 / n, so gx = k1 x + k0
-        n = x.shape[2] * x.shape[3]
-        k1 = g_rstd * (rstd.pow(3) * (-1.0 / n))
-        k0 = torch.addcmul(k1 * mean, gb, rstd, value=1.0 / n).neg()
-        return torch.addcmul(k0, x, k1).to(x.dtype), g_weight, g_bias, None, None
 
 
 class _Stash:
@@ -197,8 +140,8 @@ def keep_stats(fn):
 
 class InstanceNorm(nn.Module):
     """InstanceNorm2d (eps 1e-5) with f32 statistics folded into one
-    per-(sample, channel) scale and offset (`FoldedStats`), applied in the
-    compute dtype. Inside a `keep_stats` region the recompute takes the
+    per-(sample, channel) scale and offset, applied in the compute dtype
+    (`instance_norm`). Inside a `keep_stats` region the recompute takes the
     forward's statistics back instead of reducing x again."""
 
     def __init__(self, num_features: int, affine: bool = True, eps: float = 1e-5,
@@ -213,13 +156,10 @@ class InstanceNorm(nn.Module):
             self.weight = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cd = self.compute_dtype
         stash = _ACTIVE.stash
         kept = None if stash is None else stash.take(x)
-        a, b = FoldedStats.apply(x, self.weight, self.bias, self.eps, kept)
-        if stash is not None:
-            stash.put(a, b)
-        return x.to(cd) * a.to(cd) + b.to(cd)
+        return instance_norm(x, self.weight, self.bias, self.eps, self.compute_dtype, kept,
+                             None if stash is None else stash.put)
 
 
 def conv_in_relu(cin: int, cout: int, kernel: int, stride: int, pad: int,

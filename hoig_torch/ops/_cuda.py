@@ -38,6 +38,7 @@ SOURCES = {
     "rasterizer": ("rasterizer.cu", ["-fmad=false"]),
     "table_gather": ("table_gather.cu", []),
     "attn_fused": ("attn_fused.cu", ["-fmad=false"]),
+    "instance_norm": ("instance_norm.cu", ["-fmad=false"]),
 }
 
 _LAUNCHES: collections.Counter = collections.Counter()

@@ -355,6 +355,35 @@ def scatter_rows_launches(cfg, leg: str) -> int:
     return len(attn_layers(cfg.image_size, cfg.conv_dim, cfg.repeat_num))
 
 
+def instance_norm_launches(cfg, leg: str, d_trainable: bool = True) -> dict:
+    """Launches of the InstanceNorm kernels (hoig_torch/ops/instance_norm.py:
+    bandwidth-bound, outside the FLOP walk) in one serving call or training
+    step, under their counters. Each norm's forward launches the statistics
+    and the apply kernel; generator_spade_attn has 7 + 2 repeat norms in its
+    ResNet background branch (stem, 3 down, 2 a residual block, 3 up) and
+    10 + 2 repeat in each of its three ResUnet branches (stem, 3 down, 2 a
+    bottleneck block, 3 up, 3 skippers); PatchGAN-4 has 4. A training step
+    runs D on the fake in G's loss and, D trained or not, on the real and
+    the fake in its own; the backward (three kernels) runs for G's norms
+    and the G loss's D pass, and with d_trainable for D's step too; under
+    remat the recompute applies the kept statistics again for each norm of
+    the conv blocks (7 + 3 x 10) and, with remat_bottleneck, of the
+    bottleneck blocks (2 repeat a branch)."""
+    if cfg.gen_name != "generator_spade_attn" or not cfg.use_spade:
+        raise ValueError(f"the count covers generator_spade_attn with SPADE, not {cfg.gen_name}")
+    rep = cfg.repeat_num
+    g = (7 + 2 * rep) + 3 * (10 + 2 * rep)
+    if leg != "train":
+        return {"inorm_stats": g, "inorm_apply": g}
+    d = 4 if cfg.d_norm_type == "instance" else 0
+    stats = g + 3 * d
+    kept = 0
+    if cfg.remat:
+        kept = 7 + 3 * 10 + (4 * 2 * rep if cfg.remat_bottleneck else 0)
+    backward = g + d + (2 * d if d_trainable else 0)
+    return {"inorm_stats": stats, "inorm_apply": stats + kept, "inorm_backward": 3 * backward}
+
+
 def leg_flops(cfg, b: int, leg: str) -> dict:
     """FLOPs of one serving call ("serve") or training step ("train") at
     batch b: {"aten": {subnet: {model, executed}}, "kernels": {counter:

@@ -238,7 +238,9 @@ KERNEL_CLASSES = (
                               "fold_kernel", "dg_kernel", "dw_kernel", "dw_tc_kernel",
                               "slice_sum_kernel", "scatter_rows_kernel", "row_count_kernel",
                               "row_scan_kernel", "row_scan_totals_kernel", "row_place_kernel",
-                              "segment_sort_kernel")),
+                              "segment_sort_kernel", "inorm_stats_kernel", "inorm_apply_kernel",
+                              "inorm_bwd_sums_kernel", "inorm_bwd_coef_kernel",
+                              "inorm_bwd_dx_kernel")),
     ("collectives (NCCL)", ("nccl",)),
     # cuBLAS's kernels are xmma and cutlass kernels too: a convolution's name
     # says fprop, dgrad or wgrad, implicit_gemm, cudnn or conv

@@ -99,7 +99,7 @@ def check_leg(tcfg, batch_size: int, device, env=None) -> dict:
         row = dict(aten_counted=got, aten_walk=want, rel_diff=rel, conditioning=cond)
         if on_card:
             expect = {k: v["launches"] for k, v in w[leg]["kernels"].items()}
-            expect.update(rasterizer=1, table_gather=2)
+            expect.update(rasterizer=1, table_gather=2, **flops.instance_norm_launches(tcfg, leg))
             if flops.edge_pad_folds(tcfg, leg):
                 expect["edge_pad_fold"] = flops.edge_pad_folds(tcfg, leg)
             if flops.scatter_rows_launches(tcfg, leg):

@@ -314,18 +314,25 @@ def test_leg_specs_are_bench_py_legs():
     assert (dex["camera"], dex["with_masks"]) == ("fxfy", False)
     assert specs["train_fp32"]["tcfg"] == trainer.TrainConfig()
     # the walk's launches per step: 18 / 18 / 9 per shift step at either
-    # batch, and the backward of the attention's 18 edge pads
+    # batch, and the backward of the attention's 18 edge pads; the
+    # InstanceNorm kernels: G's 85 norms and D's 4 a pass (three passes a
+    # step), the recompute's apply of the 37 norms of the conv blocks under
+    # the bf16 remat defaults (of all 85 under full remat), three kernels a
+    # backward for each of the 97
+    norms = dict(inorm_stats=97, inorm_apply=97 + 37, inorm_backward=3 * 97)
     shift = dict(local_combine_tc=18, local_combine_bwd_src_tc=18, local_combine_bwd_v_tc=9,
-                 rasterizer=1, table_gather=2, edge_pad_fold=18)
+                 rasterizer=1, table_gather=2, edge_pad_fold=18, **norms)
     for leg in ("train_bf16", "train_bf16_b8", "train_bf16_dexycb"):
         assert bench_torch.expected_launches(specs[leg]) == shift
     assert bench_torch.expected_launches(specs["gen_fwd"]) == dict(
-        local_combine_tc=18, rasterizer=1, table_gather=2)
+        local_combine_tc=18, rasterizer=1, table_gather=2, inorm_stats=85, inorm_apply=85)
     assert bench_torch.expected_launches(specs["train_fp32"]) == dict(
-        rasterizer=1, table_gather=2, edge_pad_fold=9, scatter_rows=9)
+        rasterizer=1, table_gather=2, edge_pad_fold=9, scatter_rows=9,
+        **dict(norms, inorm_apply=97 + 85))
     fused = bench_torch.expected_launches(bench_torch.leg_spec("train_bf16", "pallas"))
     assert fused == dict(attn_fused_fwd_tc=9, attn_fused_bwd_c=9, attn_fused_bwd_a_gsrc_tc=9,
-                         attn_fused_bwd_a_dw_tc=9, rasterizer=1, table_gather=2, edge_pad_fold=9)
+                         attn_fused_bwd_a_dw_tc=9, rasterizer=1, table_gather=2, edge_pad_fold=9,
+                         **norms)
     with pytest.raises(SystemExit):
         bench_torch.leg_spec("train_bf16_b16")
 
