@@ -298,14 +298,21 @@ def worker(leg: str, headline_only: bool, opts=None):
     def measure(run):
         """Time `run` (one chained step or call returning a device scalar)
         and record the leg's numbers under `tag`."""
+        _cuda.reset_launch_counts()
         t0 = time.perf_counter()
         finish(run())
         details[f"{tag}_first_step_s"] = time.perf_counter() - t0
+        first = _cuda.launch_counts()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         _cuda.reset_launch_counts()
         blocked = blocked_ms(run, finish)
-        counts = _cuda.launch_counts()
+        # one launch count per kernel launch: over the 3 synchronized steps; a
+        # serving call after the first replays its CUDA graphs, which runs no
+        # wrapper, so a call's are the first (eager) call's
+        counts = {k: v // 3 if v % 3 == 0 else v / 3 for k, v in _cuda.launch_counts().items()}
+        if spec["kind"] == "serve":
+            counts = first
         ms = pipelined_ms(run, finish, opts.iters)
         check_timing(tag, ms, blocked)
         b, tcfg = spec["batch"], spec["tcfg"]
@@ -330,9 +337,7 @@ def worker(leg: str, headline_only: bool, opts=None):
             f"{tag}_tflops_per_sec": walk["executed"] / (ms / 1e3) / 1e12 if on_card else None,
             f"{tag}_mfu": share if on_card else None,
             f"{tag}_mfu_peak": peak_label,
-            # one launch count per kernel launch: over the 3 synchronized runs
-            f"{tag}_launches": {k: v // 3 if v % 3 == 0 else v / 3 for k, v in counts.items()}
-            if on_card else None,
+            f"{tag}_launches": counts if on_card else None,
             f"{tag}_peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20 if on_card else None,
         })
         log(f"{tag}: {details[f'{tag}_images_per_sec_per_chip']:.3f} img/s/chip ({ms:.2f} ms, "

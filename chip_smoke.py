@@ -14,7 +14,8 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
      parallel), report the build seconds, and hold the tile constants that
      hoig_torch/ops/attn_fused.py and local_combine.py repeat (TILING)
      against the libraries';
-  3. drive the serving path once (conditioning + generator_spade_attn at full
+  3. drive the serving path once, eagerly (flow_eager + forward_eager:
+     conditioning + generator_spade_attn at full
      width, 256 px, batch 4, bf16, shift engine, random weights from a seed)
      with every launch counter at 0, and record the inputs each kernel got;
      then hold each kernel against its plain PyTorch version on exactly those
@@ -41,16 +42,26 @@ Phases (any failure exits non-zero, nothing falls back to the CPU):
   4. compare the card with the CPU: the conditioning at 128 px, batch 2, and
      the full-width generator in f32 (TF32 off) at 128 px, batch 1, its
      outputs and the gradient of a fixed scalar of them w.r.t. every weight;
-  5. time the serving call (>= 5 calls after warm-up), assert 18 / 1 / 2
+  5. time the serving call (>= 5 calls after warm-up: CUDA graphs'
+     replays), assert 18 / 1 / 2
      launches of the combine (local_combine_tc) / rasterizer / gather
-     kernels per call and finite outputs;
+     kernels on the eager first call and on the call that captures (its
+     warm-up), none on a replay, and finite outputs;
+ 5b. the serving calls' CUDA graphs (flow_only, forward_only) against the
+     eager bodies at the benchmark's hogan_dexycb (batch 16) and
+     hogan_ho3dv3 (batch 4, and a partial batch of 3): five calls on
+     different rows bit-equal to eager, no output changed by a later call,
+     launches counted on the eager call and the capture's warm-up alone,
+     a weight scaled in place seen by the next replay, a replaced weight
+     captured again; call ms eager and replayed, the host ms of a replay,
+     the weights' guard in us, peak memory;
   6. the fused attention engine (corner_engine "pallas", the four B4
      kernels of hoig_torch/csrc/attn_fused.cu; under bf16, B4-fwd's phase A,
      B4-bwd-a-gsrc's projection and B4-bwd-a-dw run on the tensor cores,
      counted as attn_fused_fwd_tc, attn_fused_bwd_a_gsrc_tc and
      attn_fused_bwd_a_dw_tc; B4-bwd-c is bwd_c_kernel, V and the padded
      gradient kept on chip, with bwd_c_gattn_kernel for g_attn's last sum)
-     on the same model, data and weights: (a) one
+     on the same model, data and weights: (a) one eager
      serving call from launch counters at 0 (9 / 1 / 2 launches of B4-fwd /
      rasterizer / gather, no combine) with B4-fwd held against its plain
      version on the nine recorded inputs; (b) one training step (remat off)
@@ -2427,15 +2438,24 @@ def grads_agree(got: dict, ref: dict, label: str) -> dict:
 
 def time_serving(gen, env, ccfg, batch, tcfg, expected: dict, n: int = 7) -> dict:
     """Host ms of n serving calls (conditioning, then generator) after two
-    warm-up calls, each with its launches asserted and finite outputs."""
+    warm-up calls: the first runs eagerly and the second captures the CUDA
+    graphs, each with `expected` launches (the second's are its warm-up on
+    the capture stream: the capture launches nothing); the timed calls
+    replay the graphs, so no wrapper runs and the counters stay at 0. Every
+    call's outputs finite."""
     import torch
 
     from hoig_torch.ops import _cuda
-    from hoig_torch.train.model_api import flow_only, forward_only
+    from hoig_torch.train.model_api import FLOW_GRAPHS, FORWARD_GRAPHS, flow_only, forward_only
 
-    for _ in range(2):
+    FLOW_GRAPHS.clear()
+    FORWARD_GRAPHS.clear()
+    for i in range(2):
+        _cuda.reset_launch_counts()
         forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        check(_cuda.launch_counts() == expected,
+              f"warm-up call {i + 1} launches {_cuda.launch_counts()} != {expected}")
     torch.cuda.reset_peak_memory_stats()
     cond_ms, gen_ms = [], []
     for _ in range(n):
@@ -2447,8 +2467,8 @@ def time_serving(gen, env, ccfg, batch, tcfg, expected: dict, n: int = 7) -> dic
         outs = forward_only(gen, flow, batch, tcfg)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        check(_cuda.launch_counts() == expected,
-              f"per-call launches {_cuda.launch_counts()} != {expected}")
+        check(_cuda.launch_counts() == {},
+              f"a replayed call counted launches {_cuda.launch_counts()}: it did not replay")
         check(all(torch.isfinite(o).all() for o in outs), "non-finite serving outputs")
         cond_ms.append((t1 - t0) * 1e3)
         gen_ms.append((t2 - t1) * 1e3)
@@ -2464,6 +2484,134 @@ def time_serving(gen, env, ccfg, batch, tcfg, expected: dict, n: int = 7) -> dic
     return serve
 
 
+def _same(a, b) -> bool:
+    """Nests of dicts, tuples and tensors (or None) bit-equal."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return (a is None and b is None) or torch.equal(a, b)
+
+
+def graph_phase(env) -> dict:
+    """Phase 5b: the serving calls' CUDA graphs (hoig_torch/train/call_graphs.py)
+    against the eager bodies (flow_eager, forward_eager) at the benchmark's
+    configurations, hogan_dexycb at batch 16 and hogan_ho3dv3 at batch 4 and
+    at a partial batch of 3: five successive calls on rows of five seeds
+    (call 1 eager, call 2 captured, 3-5 replayed; the launch counters move
+    on calls 1 and 2 alone, by the same counts), every output of every
+    call bit-equal to the eager bodies' on the same rows once all five have
+    run (no call's outputs changed under a later one); then a weight scaled
+    in place and a convolution's weight replaced by a new tensor, each seen
+    by the next call (the second captures again). Times per call eager and
+    replayed, the host ms of a replayed call, the weights' guard and the
+    peak device memory."""
+    import torch
+
+    from benchmark.lib.program import conditioning_config, train_config
+    from hoig_torch.data.synthetic import synthetic_batch
+    from hoig_torch.ops import _cuda
+    from hoig_torch.train import call_graphs
+    from hoig_torch.train.model_api import (FLOW_GRAPHS, FORWARD_GRAPHS, batch_as_torch,
+                                            flow_eager, flow_only, forward_eager, forward_only)
+    from hoig_torch.train.trainer import build_generator
+
+    def host_ms(fn, reps=5, sync=True):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            if sync:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    out = {}
+    for label, config, b in (("hogan_dexycb b16", "hogan_dexycb", 16),
+                             ("hogan_ho3dv3 b4", "hogan_ho3dv3", 4),
+                             ("hogan_ho3dv3 b3", "hogan_ho3dv3", 3)):
+        cfg = json.loads((REPO / "benchmark" / "configs" / f"{config}.json").read_text())
+        tcfg, ccfg = train_config(cfg), conditioning_config(cfg)
+        gen = build_generator(tcfg, device="cuda", seed=0)
+        batches = [batch_as_torch(synthetic_batch(b, env["obj_verts"], image_size=IMAGE,
+                                                  seed=20 + i, camera=cfg["camera_model"],
+                                                  with_masks=cfg["with_masks"]), "cuda")
+                   for i in range(5)]
+        FLOW_GRAPHS.clear()
+        FORWARD_GRAPHS.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def eager(batch, gen=gen):
+            flow = flow_eager(batch, env, ccfg)
+            return flow, forward_eager(gen, flow, batch, tcfg)
+
+        def graphed(batch, gen=gen):
+            flow = flow_only(batch, env, ccfg)
+            return flow, forward_only(gen, flow, batch, tcfg)
+
+        want = [eager(bt) for bt in batches]
+        repeat = _same(eager(batches[0]), want[0])
+        got, counted = [], []
+        for bt in batches:
+            _cuda.reset_launch_counts()
+            got.append(graphed(bt))
+            counted.append(_cuda.launch_counts())
+        torch.cuda.synchronize()
+        differ = [i for i, (g, w) in enumerate(zip(got, want)) if not _same(g, w)]
+        check(FLOW_GRAPHS.captures == FORWARD_GRAPHS.captures == 1,
+              f"{label}: {FLOW_GRAPHS.captures} / {FORWARD_GRAPHS.captures} captures in 5 calls")
+        check(counted[0] and counted[1] == counted[0] and not any(counted[2:]),
+              f"{label}: launch counters per call {counted}: the eager call's launches on call 1 "
+              "and on call 2 (its capture's warm-up), none on a replay")
+        check(not differ, f"{label}: graphed calls {differ} differ from the eager bodies "
+                          f"(eager bit-equal to itself: {repeat})")
+        check(not _same(got[0][1], got[1][1]), f"{label}: calls on other rows gave the same images")
+        peak = torch.cuda.max_memory_allocated()
+        row = dict(calls=5, bit_equal=True, eager_repeats=repeat, peak_bytes=peak,
+                   eager_call_ms=host_ms(lambda: eager(batches[1])),
+                   graph_call_ms=host_ms(lambda: graphed(batches[1])),
+                   graph_host_ms=host_ms(lambda: graphed(batches[1]), sync=False))
+        live = call_graphs.module_tensors(gen)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            call_graphs.live_specs(call_graphs.module_tensors(gen))
+        row.update(guard_us=(time.perf_counter() - t0) / 100 * 1e6, guarded_tensors=len(live))
+
+        # a weight scaled in place, then a convolution's weight replaced
+        flow0 = want[0][0]
+        with torch.no_grad():
+            next(gen.parameters()).mul_(1.25)
+        moved = forward_only(gen, flow0, batches[0], tcfg)
+        check(_same(moved, forward_eager(gen, flow0, batches[0], tcfg))
+              and not _same(moved, want[0][1]) and FORWARD_GRAPHS.captures == 1,
+              f"{label}: a weight scaled in place was not seen by the replay")
+        conv = next(m for m in gen.modules() if isinstance(m, torch.nn.Conv2d))
+        conv.weight = torch.nn.Parameter(conv.weight.detach() * 0.5)
+        replaced = forward_only(gen, flow0, batches[0], tcfg)
+        check(FORWARD_GRAPHS.captures == 2
+              and _same(replaced, forward_eager(gen, flow0, batches[0], tcfg))
+              and not _same(replaced, moved),
+              f"{label}: a replaced weight was not captured again "
+              f"({FORWARD_GRAPHS.captures} captures)")
+        row.update(in_place_seen=True, replaced_recaptured=True)
+        log(f"  {label}: 5 graphed calls bit-equal to eager (eager repeats: {repeat}), no output "
+            f"changed under a later call; in-place weight seen, replaced weight recaptured; call "
+            f"{row['eager_call_ms']:.2f} ms eager / {row['graph_call_ms']:.2f} ms replayed (host "
+            f"{row['graph_host_ms']:.3f} ms of it), guard {row['guard_us']:.0f} us over "
+            f"{len(live)} tensors, peak {peak} B")
+        out[label] = row
+        del gen, batches, want, got, moved, replaced, live
+        FLOW_GRAPHS.clear()
+        FORWARD_GRAPHS.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
 def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
     """Phase 6 (see the module docstring). Returns (kernel results, the
     phase's numbers, a function that builds the profiler regions of the
@@ -2476,7 +2624,7 @@ def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
 
     from hoig_torch.models.generator import ExtractorAttn
     from hoig_torch.ops import _cuda
-    from hoig_torch.train.model_api import flow_only, forward_only
+    from hoig_torch.train.model_api import flow_eager, flow_only, forward_eager, forward_only
     from hoig_torch.train.trainer import build_generator
 
     # (a) serving, from launch counters at 0, on the shift generator's weights
@@ -2491,7 +2639,7 @@ def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
     with recording(rec):
         torch.cuda.synchronize()
         _cuda.reset_launch_counts()
-        outs = forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)
+        outs = forward_eager(gen, flow_eager(batch, env, ccfg), batch, tcfg)
         torch.cuda.synchronize()
         launches = _cuda.launch_counts()
     for h in hooks:
@@ -2568,7 +2716,8 @@ def fused_phase(env, ccfg, batch, gen_shift, tcfg_shift):
         gen = build_generator(tcfg, device="cuda", seed=0)
         gen.load_state_dict(gen_shift.state_dict())
         state, step = build_step(env, ccfg, train_config("pallas", remat=False))
-        forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)  # warm-up
+        for _ in range(2):  # warm-up: the graphs are captured before the profiler runs
+            forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)
         counted_step(state, step, batch, True, FUSED_LAUNCHES_PER_STEP)
         return {
             "hoig_serve_fused": (
@@ -4313,7 +4462,8 @@ def main() -> int:
     from hoig_torch.geometry.conditioning import ConditioningConfig
     from hoig_torch.ops import _cuda
     from hoig_torch.train.environment import resolve_corner_engine
-    from hoig_torch.train.model_api import batch_as_torch, flow_only, forward_only
+    from hoig_torch.train.model_api import (batch_as_torch, flow_eager, flow_only, forward_eager,
+                                            forward_only)
     from hoig_torch.train.trainer import TrainConfig, build_generator
 
     # 1. the card
@@ -4358,7 +4508,7 @@ def main() -> int:
     with recording(rec):
         torch.cuda.synchronize()
         _cuda.reset_launch_counts()
-        outs = forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)
+        outs = forward_eager(gen, flow_eager(batch, env, ccfg), batch, tcfg)
         torch.cuda.synchronize()
         launches = _cuda.launch_counts()
     log(f"  main path launches: {launches}")
@@ -4387,6 +4537,12 @@ def main() -> int:
         "repeat 6")
     serve = time_serving(gen, env, ccfg, batch, tcfg, LAUNCHES_PER_CALL)
 
+    # 5b. the serving calls' CUDA graphs against the eager bodies
+    log(f"[5b] CUDA graphs of flow_only and forward_only against flow_eager and forward_eager: "
+        f"hogan_dexycb b16, hogan_ho3dv3 b4 and b3 (the benchmark's configurations), {IMAGE} px; "
+        f"card {card}")
+    graphs = graph_phase(env)
+
     # 6. the fused attention engine
     log(f"[6] fused attention engine (corner_engine 'pallas'): {IMAGE} px, batch {BATCH}, bf16, "
         "conv_dim 64, repeat 6, the shift generator's weights")
@@ -4396,6 +4552,8 @@ def main() -> int:
     # 7. the training step (and 8. the profiler window)
     log(f"[7] training step: {IMAGE} px, batch {BATCH}, bf16, shift engine, conv_dim 64, repeat 6, "
         "PatchGAN-4, VGG19 loss, mask BCE")
+    for _ in range(2):  # phase 5b forgot the graphs: capture them before the profiler runs
+        forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg)
     regions = {"hoig_serve": (lambda: forward_only(gen, flow_only(batch, env, ccfg), batch, tcfg), 2)}
     bwd_results, train, profile = training_phase(env, ccfg, batch, regions, fused_regions, out_dir)
     results.update(bwd_results)
@@ -4504,7 +4662,7 @@ def main() -> int:
         kernels.append(row)
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                   kernels=results, instance_norm=norms, cpu_compare=cpu_cmp, serving=serve,
-                  training=train,
+                  graphs=graphs, training=train,
                   fp32=fp32, fused=fused, profile=profile, drivers=drivers, ddp=ddp, metrics=metrics,
                   offpath=offpath, tools=tools, real_data=real_data, bench=bench)
     (out_dir / "result.json").write_text(json.dumps(detail, indent=1, default=str))
@@ -4517,6 +4675,7 @@ def main() -> int:
     log(json.dumps({"bench": {k: bench[k] for k in ("headline", "legs", "b8_over_b4_step",
                                                     "sanity_b4_vs_b8", "fused_headline",
                                                     "seconds")}, "card": card}, default=str))
+    log(json.dumps({"graphs": graphs, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"instance_norm": {k: norms[k] for k in (
         "worst_rel", "step_bf16_b32", "call_bf16_b16", "step_fp32_b32", "seconds")}}))

@@ -14,6 +14,7 @@ import types
 import numpy as np
 import torch
 
+from hoig_torch.geometry.projection import constant
 from hoig_torch.ops._cuda import resolve_device
 
 NUM_VERTS = 778
@@ -194,8 +195,7 @@ def mano_forward(params: dict, global_orient: torch.Tensor, hand_pose: torch.Ten
 
     parents = MANO_PARENTS
     rel_t = [joints[:, 0]] + [joints[:, i] - joints[:, parents[i]] for i in range(1, NUM_JOINTS)]
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
-                          device=rot_mats.device).expand(b, 1, 4)
+    bottom = constant((0.0, 0.0, 0.0, 1.0), rot_mats.dtype, rot_mats.device).expand(b, 1, 4)
     transforms = []
     for i in range(NUM_JOINTS):
         local = torch.cat([torch.cat([rot_mats[:, i], rel_t[i][:, :, None]], dim=2), bottom], dim=1)
@@ -212,7 +212,7 @@ def mano_forward(params: dict, global_orient: torch.Tensor, hand_pose: torch.Ten
     v_h = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])], -1)
     verts = torch.einsum("bvmn,bvn->bvm", t_verts, v_h)[..., :3]
 
-    tips = verts[:, list(FINGERTIP_VERT_IDS), :]
+    tips = verts[:, constant(FINGERTIP_VERT_IDS, torch.long, verts.device), :]
     joints21 = torch.cat([posed_joints, tips], dim=1)
     if transl is not None:
         verts = verts + transl[:, None, :]

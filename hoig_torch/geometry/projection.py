@@ -5,6 +5,8 @@ torch's CUDA matrix products), as the JAX package asks for HIGHEST."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -17,6 +19,28 @@ HOGAN_VIEWING_ANGLE = 30.0
 HOGAN_EYE_Z = float(1.0 / np.tan(np.radians(HOGAN_VIEWING_ANGLE)) + 1.0)
 
 
+def _hashable(values):
+    if isinstance(values, np.ndarray):
+        values = values.tolist()
+    return tuple(map(_hashable, values)) if isinstance(values, (list, tuple)) else values
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # a normal tensor even when first asked for under inference mode, so
+    # that autograd may save it
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """`torch.tensor(values, dtype=dtype, device=device)` made once per
+    (values, dtype, device) and shared: read it, never write it. A call
+    after the first copies nothing from the host, which a CUDA graph's
+    capture refuses and which makes the host wait."""
+    return _constant(_hashable(values), dtype, torch.device(device))
+
+
 def orthographic_proj_withz_idrot(pts3d: torch.Tensor, cam: torch.Tensor, offset_z: float = 0.0,
                                   image_size: int = 256) -> torch.Tensor:
     """camMat + crop affine projection (HOv3). pts3d (B, N, 3), cam (B, 15)
@@ -24,7 +48,7 @@ def orthographic_proj_withz_idrot(pts3d: torch.Tensor, cam: torch.Tensor, offset
     bs = cam.shape[0]
     cam_mat = cam[:, 0:9].reshape(bs, 3, 3)
     trans = cam[:, 9:15].reshape(bs, 2, 3)
-    flipped = pts3d * torch.tensor([1.0, -1.0, -1.0], dtype=pts3d.dtype, device=pts3d.device)
+    flipped = pts3d * constant((1.0, -1.0, -1.0), pts3d.dtype, pts3d.device)
     proj = torch.einsum("bnk,bmk->bnm", flipped, cam_mat)
     xy = proj[:, :, :2] / proj[:, :, 2:3]
     xy1 = torch.cat([xy, torch.ones_like(xy[:, :, :1])], dim=2)
@@ -53,8 +77,7 @@ def orthographic_proj_withz_fxfy(pts3d: torch.Tensor, cam: torch.Tensor, offset_
 def look_at(vertices: torch.Tensor, eye, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)) -> torch.Tensor:
     """The neural renderer's general look_at (look_at.py:6-62): (B, N, 3)
     world vertices -> view space, the eye at the origin looking along +z."""
-    kw = dict(dtype=vertices.dtype, device=vertices.device)
-    eye, at, up = torch.tensor(eye, **kw), torch.tensor(at, **kw), torch.tensor(up, **kw)
+    eye, at, up = (constant(v, vertices.dtype, vertices.device) for v in (eye, at, up))
 
     def norm(v):
         return v / torch.linalg.norm(v).clamp_min(1e-5)
@@ -71,8 +94,8 @@ def look_at(vertices: torch.Tensor, eye, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0))
 
 def to_view_space(proj_verts: torch.Tensor) -> torch.Tensor:
     """HOGAN's fixed-camera look_at: y flip, then z shift by the eye distance."""
-    flip = torch.tensor([1.0, -1.0, 1.0], dtype=proj_verts.dtype, device=proj_verts.device)
-    shift = torch.tensor([0.0, 0.0, HOGAN_EYE_Z], dtype=proj_verts.dtype, device=proj_verts.device)
+    flip = constant((1.0, -1.0, 1.0), proj_verts.dtype, proj_verts.device)
+    shift = constant((0.0, 0.0, HOGAN_EYE_Z), proj_verts.dtype, proj_verts.device)
     return proj_verts * flip + shift
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from hoig_torch.geometry import mesh as mesh_utils
 from hoig_torch.geometry.projection import (
     HOGAN_EYE_Z,
+    constant,
     orthographic_proj_withz_fxfy,
     orthographic_proj_withz_idrot,
     to_view_space,
@@ -368,9 +369,8 @@ def sample_from_texture(cond: torch.Tensor) -> torch.Tensor:
     """Sparse condition map (B, C, H, W) -> atlas grid (B, 2, H, W)
     (nmr.py:1060-1066): -2 where the uv is zero."""
     uv = cond[:, :2]
-    kw = dict(dtype=uv.dtype, device=uv.device)
-    mean = torch.tensor(ATLAS_MEAN, **kw)[None, :, None, None]
-    scale = torch.tensor([0.8, 2.0], **kw)[None, :, None, None]
+    mean = constant(ATLAS_MEAN, uv.dtype, uv.device)[None, :, None, None]
+    scale = constant((0.8, 2.0), uv.dtype, uv.device)[None, :, None, None]
     nonzero = (uv != 0).to(uv.dtype)
     return nonzero * (uv - mean) * scale + (1.0 - nonzero) * (-2.0)
 
@@ -392,12 +392,13 @@ def render_depth(tables: dict, cam, verts, obj_ids, image_size: int = 256,
 
 def create_coords(tex_size: int = 3, device="cuda") -> torch.Tensor:
     """(2, T*T) barycentric sample grid (nmr.py:731-746), on the card unless
-    the caller passes device="cpu"."""
+    the caller passes device="cpu"; made once per (size, device) and shared
+    (`projection.constant`): read it, never write it."""
     step = 1.0 if tex_size == 1 else 1.0 / (tex_size - 1)
     ab = np.arange(0, 1 + step, step, dtype=np.float32)
     xv, yv = np.meshgrid(ab, ab, indexing="ij")
-    return torch.as_tensor(np.stack([xv.ravel(), yv.ravel()], axis=0),
-                           device=resolve_device(device))
+    return constant(np.stack([xv.ravel(), yv.ravel()], axis=0), torch.float32,
+                    resolve_device(device))
 
 
 def create_meshgrid(image_size: int, device="cuda") -> torch.Tensor:

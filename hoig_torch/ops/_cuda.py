@@ -10,7 +10,9 @@ rebuilds only what changed. Nothing is built or imported at module import:
 the CPU tests import every module of the port.
 
 Every wrapper counts its launches here (`count_launch`), so a run can show
-which kernels the main path went through.
+which kernels the main path went through. Only a launch counts: a wrapper
+that runs while the stream is captured into a CUDA graph records its
+kernel without launching it, and a graph's replay runs no wrapper.
 """
 
 from __future__ import annotations
@@ -44,8 +46,14 @@ SOURCES = {
 _LAUNCHES: collections.Counter = collections.Counter()
 
 
+def capturing() -> bool:
+    """Whether the current stream is being captured into a CUDA graph."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+    if not capturing():
+        _LAUNCHES[name] += 1
 
 
 def launch_counts() -> dict:

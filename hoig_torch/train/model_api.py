@@ -2,8 +2,10 @@
 (port of hoig_tpu/train/model_api.py).
 
 `flow_only` and `forward_only` are the serving path (conditioning, then
-generator forward and composite). `HOIGModel` gives the drivers the
-reference's Trainer surface (models/trainer.py:188-595): set_input /
+generator forward and composite); on CUDA tensors each call replays a CUDA
+graph of its body (`call_graphs.CallGraphs`), and `flow_eager` and
+`forward_eager` run the same bodies eagerly. `HOIGModel` gives the drivers
+the reference's Trainer surface (models/trainer.py:188-595): set_input /
 forward / optimize_parameters / save / load / update_learning_rate /
 get_current_{errors,visuals,scalars} / set_train / set_eval, over
 `make_train_step`, `make_eval_metrics`, `decay_lr` and the checkpoints.
@@ -25,6 +27,7 @@ from hoig_torch.models.vgg import init_vgg
 from hoig_torch.ops._cuda import resolve_device
 from hoig_torch.parallel import DataParallel, is_distributed
 from hoig_torch.train import checkpoints as ckpt
+from hoig_torch.train.call_graphs import CallGraphs, module_tensors
 from hoig_torch.train.environment import build_environment, train_config_from_opt
 from hoig_torch.train.trainer import (
     TrainConfig,
@@ -54,25 +57,54 @@ def batch_as_torch(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+# one captured graph per call signature of each serving entry point
+FLOW_GRAPHS = CallGraphs("flow_only")
+FORWARD_GRAPHS = CallGraphs("forward_only")
+
+
+@torch.inference_mode()
+def flow_eager(batch: dict, frozen: dict, ccfg: ConditioningConfig) -> dict:
+    """`flow_only`'s body, run eagerly: every call launches its kernels (a
+    launch, FLOP or kernel-input count reads this)."""
+    return hand_recovery_flow(frozen["tables"], frozen["mano_params"], batch["imageA"],
+                              batch["imageB"], batch["manoA"], batch["manoB"], ccfg)
+
+
+@torch.inference_mode()
+def forward_eager(model: torch.nn.Module, flow: dict, batch: dict, tcfg: TrainConfig):
+    """`forward_only`'s body, run eagerly (as `flow_eager`)."""
+    kwargs = generator_kwargs(
+        flow,
+        batch.get("maskA") if tcfg.use_armask else None,
+        batch.get("maskB") if tcfg.use_armask else None,
+        tcfg.use_spade,
+    )
+    return composite(model(**kwargs))
+
+
 @torch.inference_mode()
 def flow_only(batch: dict, frozen: dict, ccfg: ConditioningConfig) -> dict:
-    """Conditioning for one batch; frozen = dict(tables, mano_params)."""
+    """Conditioning for one batch; frozen = dict(tables, mano_params). On
+    CUDA tensors a CUDA graph per call signature (`call_graphs`): the outputs
+    are fresh tensors, the tables are read where they lie."""
     with annotate("conditioning"):
-        return hand_recovery_flow(frozen["tables"], frozen["mano_params"], batch["imageA"],
-                                  batch["imageB"], batch["manoA"], batch["manoB"], ccfg)
+        inputs = {k: batch[k] for k in ("imageA", "imageB", "manoA", "manoB")}
+        tables, mano = frozen["tables"], frozen["mano_params"]
+        return FLOW_GRAPHS(lambda b: flow_eager(b, frozen, ccfg), (inputs,),
+                           key=(id(tables), id(mano), ccfg),
+                           live=[*tables.values(), *mano.values()])
 
 
 @torch.inference_mode()
 def forward_only(model: torch.nn.Module, flow: dict, batch: dict, tcfg: TrainConfig):
-    """Generator forward + composite: (fake_src, fake_tsf, masks...), NHWC."""
+    """Generator forward + composite: (fake_src, fake_tsf, masks...), NHWC.
+    On CUDA tensors a CUDA graph per call signature, as `flow_only`: the
+    flow is copied in, the weights are read where they lie."""
     with annotate("generator"):
-        kwargs = generator_kwargs(
-            flow,
-            batch.get("maskA") if tcfg.use_armask else None,
-            batch.get("maskB") if tcfg.use_armask else None,
-            tcfg.use_spade,
-        )
-        return composite(model(**kwargs))
+        masks = {k: batch.get(k) for k in ("maskA", "maskB")} if tcfg.use_armask else {}
+        return FORWARD_GRAPHS(lambda f, m: forward_eager(model, f, m, tcfg), (flow, masks),
+                              key=(id(model), model.training, tcfg),
+                              live=module_tensors(model))
 
 
 class ModelsFactory:

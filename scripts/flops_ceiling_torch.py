@@ -74,16 +74,17 @@ def check_leg(tcfg, batch_size: int, device, env=None) -> dict:
     from profile_step_torch import build_program
 
     from hoig_torch.ops import _cuda
-    from hoig_torch.train.model_api import flow_only
+    from hoig_torch.train.model_api import flow_eager
     from hoig_torch.utils import flops
 
     prog = build_program(tcfg, batch_size, device, env)
     w = walk(tcfg, batch_size)
     on_card = device.type == "cuda"
     prog["serve"]()  # warm-up: the kernels' first build lies outside the counts
-    _, cond = flops.aten_flops(lambda: flow_only(prog["batch"], prog["env"], prog["ccfg"]))
+    # the eager bodies: a replayed CUDA graph dispatches no operator to count
+    _, cond = flops.aten_flops(lambda: flow_eager(prog["batch"], prog["env"], prog["ccfg"]))
     out = {}
-    for leg, fn in (("serve", prog["serve"]), ("train", prog["step"])):
+    for leg, fn in (("serve", prog["serve_eager"]), ("train", prog["step"])):
         _cuda.reset_launch_counts()
         _, counted = flops.aten_flops(fn)
         if on_card:

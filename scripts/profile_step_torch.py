@@ -5,7 +5,8 @@ card (the counterpart of scripts/profile_step.py, which reads an XLA trace).
 Builds the program chip_smoke.py times: the synthetic environment, the
 flagship generator_spade_attn (conv_dim 64, repeat 6, 256 px) with
 PatchGAN-4 and the VGG19 loss, and `make_train_step` (--leg train) or
-`flow_only` + `forward_only` (--leg fwd), with the remat the drivers pick
+`flow_only` + `forward_only` (--leg fwd: from the second warm-up call on,
+CUDA graphs captured and replayed), with the remat the drivers pick
 for the dtype (train_config_from_opt: full remat in fp32; under bf16 the
 bottleneck and attention kept) unless --no_remat or --remat_bottleneck say
 otherwise. After warm-up it runs --steps steps in ONE torch.profiler window
@@ -76,14 +77,17 @@ def train_config(dtype: str, engine: str, image_size: int = 256, conv_dim: int =
 
 def build_program(tcfg, batch_size: int, device, env=None, train: bool = True):
     """The environment, a batch and the program on `device`: dict(env, ccfg,
-    batch, gen, serve, state, step), `serve()` being one serving call and
-    `step()` one training step with D trained (without `train`, only the
-    generator is built and state / step are None). Weights from seed 0 (G),
+    batch, gen, serve, serve_eager, state, step), `serve()` being one serving
+    call (a CUDA graph's replay on the card once warm), `serve_eager()` the
+    same call run eagerly and `step()` one training step with D trained
+    (without `train`, only the generator is built and state / step are
+    None). Weights from seed 0 (G),
     1 (D) and 2 (VGG), as chip_smoke.py draws them."""
     from hoig_torch.data.synthetic import synthetic_batch, synthetic_environment
     from hoig_torch.geometry.conditioning import ConditioningConfig
     from hoig_torch.models.vgg import init_vgg
-    from hoig_torch.train.model_api import batch_as_torch, flow_only, forward_only
+    from hoig_torch.train.model_api import (batch_as_torch, flow_eager, flow_only, forward_eager,
+                                            forward_only)
     from hoig_torch.train.trainer import (build_generator, build_networks, init_state,
                                           make_train_step)
 
@@ -100,6 +104,8 @@ def build_program(tcfg, batch_size: int, device, env=None, train: bool = True):
     else:
         prog["gen"] = build_generator(tcfg, device=device, seed=0)
     prog["serve"] = lambda: forward_only(prog["gen"], flow_only(batch, env, ccfg), batch, tcfg)
+    prog["serve_eager"] = lambda: forward_eager(prog["gen"], flow_eager(batch, env, ccfg), batch,
+                                                tcfg)
     return prog
 
 
@@ -194,8 +200,12 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats()
         _cuda.reset_launch_counts()
         prof = profile_window({region: (run, args.steps)}, args.out, top=20).get(region)
-        counts = _cuda.launch_counts()
-        res["launches_per_step"] = {k: v // args.steps for k, v in sorted(counts.items())}
+        counts, n = _cuda.launch_counts(), args.steps
+        if args.leg != "train":  # a replay runs no wrapper: count one eager call
+            _cuda.reset_launch_counts()
+            prog["serve_eager"]()
+            counts, n = _cuda.launch_counts(), 1
+        res["launches_per_step"] = {k: v // n for k, v in sorted(counts.items())}
         res["peak_mem_mib"] = torch.cuda.max_memory_allocated() / 2**20
         if prof is None:
             print("  device numbers not measured: the profiler reported no device time")
